@@ -1,0 +1,86 @@
+"""Where the time of one planner act step goes, on the card.
+
+    python3 -m rift_tpu_torch.profile_act [--steps 5]
+
+Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
+1..3) and the full-width bf16 PlutoModel, then traces `--steps` calls of
+pluto_cbv_act with torch.profiler. Prints one JSON line: host wall time per
+call, device kernel time per call, the device's idle share, the number of
+kernel launches per call, and the kernels that take the most device time.
+Run from the repository root (it reuses chip_smoke's scene set-up).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_act: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from rift_tpu_torch.map import make_grid_town
+    from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+    from torch.profiler import ProfilerActivity, profile
+
+    tmap = make_grid_town(blocks=2, num_lanes=2)
+    state, spec = cs.make_scene(torch, tmap, 0)
+    torch.manual_seed(0)
+    model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
+    tok = canonical_map_tokens(model, tmap)
+    act = lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, map_tok=tok)
+    for _ in range(3):
+        act()
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            act()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    def dev_us(e):  # the attribute's name changed across torch versions
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+    ]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name[:80], [0.0, 0])
+        rec[0] += dev_us(e) / 1e3
+        rec[1] += 1
+    device_ms = sum(v[0] for v in by_name.values()) / args.steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
+    print(json.dumps({
+        "profile_act": {
+            "device": torch.cuda.get_device_name(0),
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "steps": args.steps,
+            "wall_ms_per_call": wall_ms,
+            "device_kernel_ms_per_call": device_ms if kernels else "not measured",
+            "idle_share": 1.0 - device_ms / wall_ms if kernels else "not measured",
+            "launches_per_call": len(kernels) / args.steps,
+            "top_kernels_ms_per_call": {
+                name: round(ms / args.steps, 4) for name, (ms, _) in top
+            },
+        }
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
