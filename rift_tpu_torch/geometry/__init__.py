@@ -1,4 +1,7 @@
+from .obb import box_corners, obb_overlap
 from .polyline import project_point_to_polyline
-from .se2 import wrap_angle
+from .se2 import rotate, wrap_angle
 
-__all__ = ["wrap_angle", "project_point_to_polyline"]
+__all__ = [
+    "wrap_angle", "rotate", "project_point_to_polyline", "box_corners", "obb_overlap",
+]

@@ -147,6 +147,15 @@ class TensorMap(TensorDataclass):
         signed_lateral, heading)."""
         return project_point_to_polyline(self.centerline[lane_idx], point)
 
+    def on_road_raster(self, point: torch.Tensor) -> torch.Tensor:
+        """Raster drivable-area test of (..., 2) points: one gather per
+        point (the evaluator's bulk off-road query)."""
+        ry, rx = self.drivable_grid.shape
+        cell = (point - self.grid_origin) * self.drivable_inv_cell
+        cx = torch.clamp(cell[..., 0].to(torch.int32), 0, rx - 1).long()
+        cy = torch.clamp(cell[..., 1].to(torch.int32), 0, ry - 1).long()
+        return self.drivable_grid[cy, cx]
+
     def on_route_mask(self, route_road_ids, route_lane_ids):
         """[..., L] bool: lane lies on the route (same road id, same lane-id
         sign). `route_*_ids` [..., RIDS], road id -1 pads."""

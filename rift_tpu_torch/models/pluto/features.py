@@ -223,12 +223,18 @@ def build_cbv_features(
     max_polygons: int = 64,
     num_refs: int = 4,
     radius: float = 120.0,
+    with_sample_feats: bool = False,
 ):
     """Canonical features (the JAX package's canonical=True; the per-CBV
     legacy features are not ported yet) for all CBVs of all scenarios,
     leading dims [S, C]. Returns (features, valid [S, C], shared) where `shared` holds
     the frame-invariant blocks {"map_feat"/"map_type"/"map_speed" [L, ...],
-    "hist_feat" [S, A, H-1, 9]}."""
+    "hist_feat" [S, A, H-1, 9]}.
+
+    `with_sample_feats` (train mode) also gathers the per-sample canonical
+    inputs "agent.hist_feat" [S, C, N, H-1, 9] and "map.canonical_feat"
+    [S, C, M, P, 10], so buffered samples stay self-contained for the fit
+    forward; the model computes the same tokens from either form."""
     S, C = cbv_slots.shape
     scen = torch.arange(S, device=cbv_slots.device).repeat_interleave(C)
     feats = build_features_for_agents(
@@ -243,4 +249,9 @@ def build_cbv_features(
     }
     shared = {f"map_{k}": v for k, v in canonical_map_features(tmap).items()}
     shared["hist_feat"] = shared_history_features(state)
+    if with_sample_feats:
+        order = feats["agent"]["order"]  # [S, C, N]
+        scen = torch.arange(S, device=order.device)[:, None, None]
+        feats["agent"]["hist_feat"] = shared["hist_feat"][scen, order]
+        feats["map"]["canonical_feat"] = shared["map_feat"][feats["map"]["lane_idx"]]
     return feats, cbv_slots >= 0, shared

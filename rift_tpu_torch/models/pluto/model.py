@@ -2,10 +2,11 @@
 
 dim 128, 21 history steps, 80 future steps, encoder and decoder depth 4
 by default, 12 modes, a reference-line x mode query decoder. This slice
-ports the canonical (frame-invariant token) path the rollout runs: agent
-tokens from the shared per-world-agent history features, map tokens from
-the shared per-lane features or the precomputed `map_tok`. The per-CBV
-legacy branches come later and raise here.
+ports the canonical (frame-invariant token) paths: agent tokens from the
+shared per-world-agent history features, map tokens from the shared
+per-lane features or the precomputed `map_tok` (the rollout), or both from
+the per-sample canonical features of a buffered batch (the fine-tune
+forward). The per-CBV legacy branches come later and raise here.
 
 Submodule names are the flax ones, so `load_jax_params` maps a flax param
 path onto the module tree directly.
@@ -59,13 +60,19 @@ class AgentEncoder(nn.Module):
     def forward(self, data):
         valid_mask = data["agent"]["valid_mask"][:, :, : self.hist_steps]
         shared = data.get("shared", {})
-        if "hist_feat" not in shared:
+        if "hist_feat" in shared:
+            hf = shared["hist_feat"]  # [S, A_w, T-1, 9]
+            S, A_w, Tm1, C = hf.shape
+            tok = self.HistoryEncoder_0(hf.reshape(S * A_w, Tm1, C))
+            tok = tok.reshape(S, A_w, self.dim)
+            x = tok[shared["scen_idx"][:, None], data["agent"]["order"]]
+        elif "hist_feat" in data["agent"]:
+            # per-sample path (buffered fit samples)
+            feat = data["agent"]["hist_feat"]  # [B, A, T-1, 9]
+            B, A, Tm1, C = feat.shape
+            x = self.HistoryEncoder_0(feat.reshape(B * A, Tm1, C)).reshape(B, A, self.dim)
+        else:
             raise _legacy("AgentEncoder")
-        hf = shared["hist_feat"]  # [S, A_w, T-1, 9]
-        S, A_w, Tm1, C = hf.shape
-        tok = self.HistoryEncoder_0(hf.reshape(S * A_w, Tm1, C))
-        tok = tok.reshape(S, A_w, self.dim)
-        x = tok[shared["scen_idx"][:, None], data["agent"]["order"]]
         x = torch.where(valid_mask.any(-1)[..., None], x, 0.0)
         ego = self.StateAttentionEncoder_0(
             data["current_state"][:, : self.state_channel]
@@ -91,7 +98,18 @@ class MapEncoder(nn.Module):
     def forward(self, data):
         sh = data.get("shared", {})
         if "map_feat" not in sh:
-            raise _legacy("MapEncoder")
+            m = data["map"]
+            if "canonical_feat" not in m:
+                raise _legacy("MapEncoder")
+            # per-sample path (buffered fit samples)
+            feat = m["canonical_feat"]  # [B, M, P, 10]
+            x = self.PointsEncoder_0(feat, torch.ones(feat.shape[:-1], dtype=torch.bool,
+                                                      device=feat.device))
+            x = x + self.type_emb(m["polygon_type"])
+            x = x + self.speed_emb(m["polygon_speed_limit"][..., None])
+            return x + self.on_route_emb(m["polygon_on_route"]) + self.tl_emb(
+                m["polygon_tl_status"]
+            )
         if "map_tok" in sh:
             tok = sh["map_tok"].to(self.dt)
         else:

@@ -1,10 +1,13 @@
-"""Pluto CBV policy, eval step (port of rift_tpu/models/pluto/policy.py:
-`select_trajectory`, `canonical_map_tokens` and the eval branch of
-`pluto_cbv_act`; the train branch comes with the train path).
+"""Pluto CBV policy (port of rift_tpu/models/pluto/policy.py:
+`select_trajectory`, `_neighbor_states`, `canonical_map_tokens` and both
+branches of `pluto_cbv_act`; the BC pretrain's `execute_teacher` comes
+later).
 
 One call plans every CBV of every scenario: canonical features, the
 PlutoModel forward, candidate selection, and the chosen local waypoints
-scattered into the [S, A] agent layout.
+scattered into the [S, A] agent layout. In train mode it also scores every
+candidate with the GRPO evaluator (rl/evaluator.py, through the retrack
+and refline kernels on the card) and returns the training signals.
 """
 
 from __future__ import annotations
@@ -12,12 +15,18 @@ from __future__ import annotations
 import torch
 
 from ...map.tensor_map import TensorMap
+from ...rl.evaluator import grpo_advantage_batched
 from ...scenario.recognition import cbv_slot_assignment
+from ...sim.autopilot import IDM_BRAKE, IDM_MAX_ACCEL, lane_follow_waypoints
 from ...sim.state import ScenarioSpec, SimState
+from ...sim.world import autopilot_steady_speed
 from .features import build_cbv_features, canonical_map_features
 
 TOPK = 10
 REF_FREE_SCORE = 0.25
+NUM_NEIGHBORS = 8  # forecast neighbours per CBV in train mode
+TEACHER_NUM_FRAMES = 80  # full candidate horizon (8 s at 10 fps)
+TEACHER_HORIZON_STEP = 39  # frame 40 = 4 s (waypoint i is frame i+1)
 BC_FRAMES = 80
 
 
@@ -49,6 +58,30 @@ def select_trajectory(out: dict, topk: int = TOPK):
     return traj, best_idx, use_ref_free
 
 
+def _neighbor_states(state: SimState, scen, slot, n_nbr: int = NUM_NEIGHBORS):
+    """The nearest alive agents of each CBV (scen, slot [...]): (pos, heading,
+    speed, control, shape, valid), each [..., n_nbr, ...]. A stable sort
+    keeps the lowest slot first among equal distances, as jax.lax.top_k
+    does."""
+    pos = state.pos[scen]  # [..., A, 2]
+    A = pos.shape[-2]
+    me = torch.gather(pos, -2, slot[..., None, None].expand(slot.shape + (1, 2)))
+    d = torch.linalg.norm(pos - me, dim=-1)
+    others = torch.arange(A, device=pos.device) != slot[..., None]
+    d = torch.where(state.alive[scen] & others, d, torch.inf)
+    k = min(n_nbr, A)
+    d_sorted, idx = torch.sort(d, dim=-1, stable=True)
+    idx, valid = idx[..., :k], torch.isfinite(d_sorted[..., :k])
+    if k < n_nbr:
+        idx = torch.cat([idx, idx.new_zeros(idx.shape[:-1] + (n_nbr - k,))], -1)
+        valid = torch.cat([valid, valid.new_zeros(valid.shape[:-1] + (n_nbr - k,))], -1)
+    sc = scen[..., None]
+    return (
+        state.pos[sc, idx], state.heading[sc, idx], state.speed[sc, idx],
+        state.control[sc, idx], state.shape[sc, idx], valid,
+    )
+
+
 def _check_device(model, tmap):
     dev = next(model.parameters()).device
     if dev.type != tmap.device.type:
@@ -74,32 +107,44 @@ def canonical_map_tokens(model, tmap: TensorMap) -> torch.Tensor:
     return model(data)
 
 
-@torch.inference_mode()
 def pluto_cbv_act(
     model,
     tmap: TensorMap,
     spec: ScenarioSpec,
     state: SimState,
     max_cbvs: int = 3,
+    train: bool = False,
     topk: int = TOPK,
     map_tok: torch.Tensor | None = None,
 ):
-    """Plan all CBVs of all scenarios (eval mode, canonical tokens: the
-    JAX package's canonical=True, the only mode ported so far).
+    """Plan all CBVs of all scenarios (canonical tokens: the JAX package's
+    canonical=True, the only mode ported so far).
 
     The JAX function takes (model, params, ...); here the weights live in
     the torch model. Returns dict:
       traj [S, A, T, 2]  local waypoints scattered into agent slots
       mask [S, A]        which agents are CBV-controlled this tick
-      features           the [S, C]-leading feature dict
+      features           the [S, C]-leading feature dict (for the buffer)
       cbv_slots [S, C], chosen_idx [S, C]
-      and the train-mode fields as zeros, as the JAX eval branch returns.
+      old_logits, advantage, adv_valid, rollout_return [S, C, R, M],
+      value, teacher_speed, exec_speed [S, C], teacher_pos [S, C, 2],
+      teacher_traj [S, C, 80, 2]: the train-mode signals, zeros in eval.
+    The eval branch runs under inference_mode; the train branch under
+    no_grad, so its features can feed a later fit.
     """
     _check_device(model, tmap)
+    mode = torch.no_grad() if train else torch.inference_mode()
+    with mode:
+        return _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok)
+
+
+def _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok):
     S, A = state.alive.shape
     cbv_slots = cbv_slot_assignment(state.is_cbv, max_cbvs)
     C = cbv_slots.shape[1]
-    feats, slot_valid, shared = build_cbv_features(tmap, state, cbv_slots, spec)
+    feats, slot_valid, shared = build_cbv_features(
+        tmap, state, cbv_slots, spec, with_sample_feats=train
+    )
     model_in = {
         g: {k: v.reshape((S * C,) + v.shape[2:]) for k, v in d.items()}
         if isinstance(d, dict) else d.reshape((S * C,) + d.shape[2:])
@@ -128,14 +173,19 @@ def pluto_cbv_act(
     mask[scen[slot_valid], slot[slot_valid]] = True
     mask[:, 0] = False  # slot 0 is the ego
 
-    R, M = out["probability"].shape[1:3]
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
-    return {
+    result = {
         "traj": traj,
         "mask": mask,
         "features": feats,
         "cbv_slots": cbv_slots,
         "chosen_idx": chosen_idx.reshape(S, C),
+    }
+    R, M = out["probability"].shape[1:3]
+    if train:
+        result.update(_train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid))
+        return result
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    result.update({
         "old_logits": zeros(S, C, R, M),
         "advantage": zeros(S, C, R, M),
         "adv_valid": torch.zeros((S, C, R, M), dtype=torch.bool, device=dev),
@@ -145,4 +195,63 @@ def pluto_cbv_act(
         "teacher_pos": zeros(S, C, 2),
         "teacher_traj": zeros(S, C, BC_FRAMES, 2),
         "exec_speed": zeros(S, C),
+    })
+    return result
+
+
+def _train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid):
+    """The train branch's executed-transition signals and the GRPO
+    advantage of every candidate."""
+    S, C = slot.shape
+    R, M = out["probability"].shape[1:3]
+    dev = slot.device
+    res = {
+        "value": out["value"].reshape(S, C) if "value" in out
+        else torch.zeros((S, C), device=dev),
     }
+    # privileged teacher trajectory: lane-chain follow with a feasible
+    # speed profile from the CBV's current speed toward the steady target
+    v_steady = torch.gather(autopilot_steady_speed(tmap, state), 1, slot)
+    v0 = state.speed[scen, slot]
+    t_k = 0.1 * (1.0 + torch.arange(TEACHER_NUM_FRAMES, dtype=torch.float32, device=dev))
+    v_k = torch.minimum(
+        torch.maximum(v_steady[..., None], torch.clamp(v0[..., None] - IDM_BRAKE * t_k, min=0.0)),
+        v0[..., None] + IDM_MAX_ACCEL * t_k,
+    )  # [S, C, 80] frame speeds
+    teacher_wp = lane_follow_waypoints(
+        tmap, state.lane[scen, slot], state.pos[scen, slot], state.heading[scen, slot],
+        state.bv_branch_bits[scen, slot], torch.clamp(v_k * 0.1, min=1e-3),
+        num_points=TEACHER_NUM_FRAMES, n_chain=8,
+    )  # [S, C, 80, 2] local frame, point i = frame i+1
+    res["teacher_speed"] = v_k[..., :10].mean(-1)
+    res["teacher_pos"] = teacher_wp[..., TEACHER_HORIZON_STEP, :]
+    res["teacher_traj"] = teacher_wp
+    # the tracker's desired speed implied by the executed trajectory
+    step_d = torch.linalg.norm(torch.diff(wp[:, :, :10], dim=2), dim=-1)
+    res["exec_speed"] = step_d.mean(-1) / 0.1
+
+    # GRPO advantage, batched over all S*C CBVs: one retrack launch over
+    # every candidate, one refline launch over every (CBV, line) pair
+    nbr = _neighbor_states(state, scen, slot)
+    B = S * C
+    fb = lambda x: x.reshape((B,) + x.shape[2:])
+    rl = feats["reference_line"]
+    adv = grpo_advantage_batched(
+        tmap,
+        out["trajectory"].reshape(B, R, M, -1, 6),
+        fb(rl["valid_mask"]).any(-1),
+        fb(rl["position"]),
+        fb(rl["orientation"]),
+        fb(rl["valid_mask"]),
+        fb(state.pos[scen, slot]),
+        fb(state.heading[scen, slot]),
+        fb(state.speed[scen, slot]),
+        fb(state.shape[scen, slot]),
+        *[fb(x) for x in nbr],
+    )
+    adv = {k: v.reshape((S, C) + v.shape[1:]) for k, v in adv.items()}
+    res["old_logits"] = out["probability"].reshape(S, C, R, M)
+    res["advantage"] = adv["advantage"]
+    res["adv_valid"] = adv["valid_mask"] & slot_valid[..., None, None]
+    res["rollout_return"] = adv["rollout_return"]
+    return res

@@ -6,6 +6,10 @@ rift_tpu/ops/attention.py).
 on CUDA tensors and its plain PyTorch version `fused_attention_ref` on CPU
 tensors; there is no fallback from one to the other. The planner's
 attentions all come through here: T = 1..97 tokens, head dim 16 or 32.
+
+It is differentiable: as the JAX package's `custom_vjp`, the backward
+saves only the inputs and recomputes through the plain version
+(rematerialisation), on either device.
 """
 
 from __future__ import annotations
@@ -57,7 +61,30 @@ def _row_stride(x: torch.Tensor, name: str) -> int:
 def fused_attention(q, k, v, bias, kpad_add, num_heads):
     """[B, Tq, D] x [B, Tk, D]^2 (+ bias [H, Tq, Tk], kpad_add [B, Tk]) ->
     [B, Tq, D] in q's dtype. The CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors; gradients through the plain version."""
+    return _FusedAttention.apply(q, k, v, bias, kpad_add, num_heads)
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kpad_add, num_heads):
+        ctx.save_for_backward(q, k, v, bias, kpad_add)
+        ctx.num_heads = num_heads
+        return _forward(q, k, v, bias, kpad_add, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, need)]
+            out = fused_attention_ref(*xs, ctx.num_heads)
+            wrt = [x for x, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def _forward(q, k, v, bias, kpad_add, num_heads):
     if q.device.type == "cpu":
         return fused_attention_ref(q, k, v, bias, kpad_add, num_heads)
     if q.device.type != "cuda":

@@ -22,6 +22,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# per-kernel flags: the evaluator's kernels mirror elementwise tensor code,
+# so no multiply-add is fused into one rounding
+EXTRA_FLAGS = {"retrack": ("-fmad=false",), "refline": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -38,9 +41,13 @@ def nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
@@ -52,7 +59,7 @@ def start_build(name: str):
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -6,7 +6,11 @@ port of the TPU kernel `points_encoder_pallas`) on CUDA tensors and its
 plain PyTorch version `points_forward_ref` on CPU tensors; there is no
 fallback from one to the other. It encodes the per-tick reference lines
 ([S*C*R, 120, 6]) and the canonical map tokens once per episode
-([L, 20, 10]).
+([L, 20, 10]), and the per-sample map rows of a fine-tune batch.
+
+It is differentiable: as the JAX package's `custom_vjp`, the backward
+saves only the inputs and recomputes through the plain version, on either
+device; the mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -56,7 +60,32 @@ def points_forward_ref(x, mask, weights, has_ln: bool = True):
 
 def points_encoder(x, mask, weights, out_dim: int, has_ln: bool = True):
     """[N, P, C] masked PointNet -> [N, out_dim] f32. The CUDA kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors; gradients through the
+    plain version."""
+    return _PointsEncoder.apply(x, mask, out_dim, has_ln, *weights)
+
+
+class _PointsEncoder(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, out_dim, has_ln, *weights):
+        ctx.save_for_backward(x, mask, *weights)
+        ctx.has_ln = has_ln
+        return _forward(x, mask, weights, out_dim, has_ln)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, *weights = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], *ctx.needs_input_grad[4:])
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in zip((x, *weights), need)]
+            out = points_forward_ref(xs[0], mask, xs[1:], ctx.has_ln)
+            wrt = [t for t, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        dx, *dw = (next(grads) if n else None for n in need)
+        return (dx, None, None, None, *dw)
+
+
+def _forward(x, mask, weights, out_dim, has_ln):
     if x.device.type == "cpu":
         return points_forward_ref(x, mask, weights, has_ln)
     if x.device.type != "cuda":

@@ -1,13 +1,16 @@
-"""Where the time of one planner act step goes, on the card.
+"""Where the time of one planner act step, or one fine-tune step, goes on
+the card.
 
-    python3 -m rift_tpu_torch.profile_act [--steps 5]
+    python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit] [--steps 5]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
-1..3) and the full-width bf16 PlutoModel, then traces `--steps` calls of
-pluto_cbv_act with torch.profiler. Prints one JSON line: host wall time per
-call, device kernel time per call, the device's idle share, the number of
-kernel launches per call, and the kernels that take the most device time.
-Run from the repository root (it reuses chip_smoke's scene set-up).
+1..3) and the full-width bf16 PlutoModel, then traces `--steps` calls with
+torch.profiler: pluto_cbv_act in eval or train mode, or (`fit`) the train
+step of a fine-tune round on a batch of 256 of the train act's samples.
+Prints one JSON line: host wall time per call, device kernel time per call,
+the device's idle share, the number of kernel launches per call, and the
+kernels that take the most device time. Run from the repository root (it
+reuses chip_smoke's scene set-up).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=("eval", "train", "fit"), default="eval")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
@@ -31,6 +35,8 @@ def main() -> int:
     import chip_smoke as cs
     from rift_tpu_torch.map import make_grid_town
     from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+    from rift_tpu_torch.rl import TrainConfig, gather_batch, make_optimizer, rift_loss_fn
+    from rift_tpu_torch.rl import ring_append, ring_init, train_step
     from torch.profiler import ProfilerActivity, profile
 
     tmap = make_grid_town(blocks=2, num_lanes=2)
@@ -38,7 +44,20 @@ def main() -> int:
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
     tok = canonical_map_tokens(model, tmap)
-    act = lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, map_tok=tok)
+    train = args.mode != "eval"
+    act = lambda: pluto_cbv_act(
+        model, tmap, spec, state, max_cbvs=cs.C, train=train, map_tok=tok
+    )
+    if args.mode == "fit":
+        samples, valid = cs.train_samples(torch, act())
+        first = lambda t: {k: first(x) for k, x in t.items()} if isinstance(t, dict) else t[0]
+        buf = ring_append(ring_init(first(samples), capacity=256), samples, valid)
+        cfg = TrainConfig()
+        batch = gather_batch(buf, torch.arange(cfg.batch_size, device="cuda") % buf.size)
+        opt = make_optimizer(model, cfg)
+        for n, p in model.named_parameters():  # frozen, as fit() holds them
+            p.requires_grad_("pi_head" in n)
+        act = lambda: train_step(model, opt, rift_loss_fn, batch, cfg.lr, cfg)
     for _ in range(3):
         act()
     torch.cuda.synchronize()
@@ -66,6 +85,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     print(json.dumps({
         "profile_act": {
+            "mode": args.mode,
             "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,

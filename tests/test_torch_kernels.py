@@ -4,11 +4,21 @@ neither), so they run there without the JAX test configuration:
 
     python -m pytest tests/test_torch_kernels.py -m cuda -q --noconftest
 
-Without a CUDA device every test here skips. Tolerances: f32 attention
+Without a CUDA device every test here but the replay's own check skips.
+Tolerances: f32 attention
 1e-5, summation order only; PointNet atol 2e-4 as the JAX package's own
 kernel test (a 512-deep f32 product chain; without the layer norms the
 outputs reach ~10^3, hence also rtol 1e-5); bf16 attention 2e-2 (the
-weights are rounded to bf16 before the AV product).
+weights are rounded to bf16 before the AV product). Retrack: each step of
+the kernel's rollout, replayed through the plain version, within 1e-4
+away from near-ties (the two sum the PID windows and the speed
+polynomials in another order, so a threshold met on one side only sends
+a candidate along another path: see test_retrack_kernel_matches_plain);
+refline 1e-5 with the nearest indices equal (candidate
+points sit off the line's midpoints, so no two line points tie). The
+gradients through the kernels' autograd Functions equal the plain
+versions' gradients (both backwards recompute through the plain version;
+the forward outputs feed nothing else).
 """
 
 import numpy as np
@@ -17,6 +27,10 @@ import torch
 
 from rift_tpu_torch.ops.attention import fused_attention, fused_attention_ref
 from rift_tpu_torch.ops.points import points_encoder, points_forward_ref
+from rift_tpu_torch.ops.refline import refline_matrices, refline_matrices_ref
+from rift_tpu_torch.geometry.se2 import rotate
+from rift_tpu_torch.ops.retrack import FUTURE_LEN, retrack_rollout, retrack_rollout_ref
+from rift_tpu_torch.sim import dynamics, pid
 from torch_parity import ATTN_CASES, attn_inputs, points_weights
 
 
@@ -58,3 +72,190 @@ def test_points_kernel_matches_plain(cuda_device, has_ln):
     torch.cuda.synchronize()
     ref = points_forward_ref(x, mask, w, has_ln)
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-5)
+
+
+def _replay(ref_pos, trace, dt=0.1):
+    """Steps the plain version once from every state of `trace` (center
+    [G, T, 2], heading [G, T], speed [G, T] of a rollout along ref_pos,
+    the tracker's windows filled from the trace's own states). Returns the
+    one-step error [G, T-1], the largest difference between the trace's
+    next state and that step, and the relative margins [G, T-1] of the
+    step's discrete decisions: how far the nearest path point is from a
+    tie with the second nearest, the aim point from a tie between the two
+    candidates, and the speed from the brake, stopped and throttle-floor
+    thresholds (inf where a decision does not matter)."""
+    center, heading, speed = trace
+    G, T = heading.shape
+    tracker = pid.TrackerState.zeros((G,), device=ref_pos.device)
+    closest = torch.zeros(G, dtype=torch.long, device=ref_pos.device)
+    ahead = torch.arange(FUTURE_LEN, device=ref_pos.device)
+    inf = torch.full((G,), float("inf"), device=ref_pos.device)
+    errs, margins = [], {k: [] for k in ("closest", "aim", "brake_speed", "brake_ratio",
+                                         "stopped", "throttle")}
+    for t in range(T - 1):
+        pos, hd, v = center[:, t], heading[:, t], speed[:, t]
+        m_closest = inf
+        if t:
+            d2 = ((ref_pos - pos[:, None]) ** 2).sum(-1)
+            closest = torch.argmin(d2, dim=-1)
+            two = torch.topk(d2, 2, dim=-1, largest=False).values
+            m_closest = (two[:, 1] - two[:, 0]) / two[:, 0].clamp(min=1.0)
+        idx = torch.clamp(closest[:, None] + ahead, max=T - 1)
+        local = rotate(torch.gather(ref_pos, 1, idx[..., None].expand(G, FUTURE_LEN, 2))
+                       - pos[:, None], -hd[:, None])
+        action, tracker = pid.track_step(tracker, local, v)
+        npos, nhd, nv = dynamics.bicycle_step(pos, hd, v, action, dt)
+        errs.append(torch.stack([(npos - center[:, t + 1]).abs().amax(-1),
+                                 (nhd - heading[:, t + 1]).abs(),
+                                 (nv - speed[:, t + 1]).abs()]).amax(0))
+        wp = local[:, 9::10]
+        desired = torch.linalg.norm(wp[:, 1:] - wp[:, :-1], dim=-1).mean(-1)
+        aim = torch.clamp(pid.AIM_ALPHA * v + pid.AIM_BETA, pid.MIN_AIM_DIS, pid.MAX_AIM_DIS)
+        norm = torch.linalg.norm(wp[:, :2], dim=-1)
+        braking = action[:, 2] >= 0.5
+        free = lambda m: torch.where(braking, inf, m)
+        margins["closest"].append(m_closest)
+        margins["aim"].append(free(((norm[:, 1] - aim).abs() - (norm[:, 0] - aim).abs()).abs() / aim))
+        margins["brake_speed"].append((desired - pid.BRAKE_SPEED).abs() / pid.BRAKE_SPEED)
+        margins["brake_ratio"].append(
+            (v / desired.clamp(min=1e-4) - pid.BRAKE_RATIO).abs() / pid.BRAKE_RATIO)
+        margins["stopped"].append(free((v - 0.01).abs() / 0.01))
+        margins["throttle"].append(free((action[:, 0] - dynamics.THROTTLE_MIN_EFFECT).abs()))
+    return torch.stack(errs, 1), {k: torch.stack(m, 1) for k, m in margins.items()}
+
+
+def test_replay_of_the_plain_rollout_is_exact():
+    """On the CPU: the replay of the plain version's own rollout reproduces
+    every step exactly, so a one-step error on the card is the kernel's."""
+    args = [torch.from_numpy(a) for a in _retrack_inputs(np.random.default_rng(3), 40, 40)]
+    err, margins = _replay(args[0], retrack_rollout_ref(*args))
+    assert err.max().item() == 0.0
+    assert set(margins) == {"closest", "aim", "brake_speed", "brake_ratio", "stopped", "throttle"}
+    assert all(m.shape == (40, 39) and (m >= 0).all() for m in margins.values())
+
+
+def _retrack_inputs(r, G, T):
+    """G paths of T points, 0-18 m/s, gentle curvature, anywhere in a
+    200 m square, and a start heading and speed each."""
+    t = np.arange(T, dtype=np.float32)
+    yaw = r.uniform(-np.pi, np.pi, (G, 1)) + r.uniform(-0.02, 0.02, (G, 1)) * t
+    step = r.uniform(0.0, 1.8, (G, 1))
+    d = np.stack([np.cos(yaw), np.sin(yaw)], -1) * step[..., None]
+    pos = r.uniform(0, 200, (G, 1, 2)) + np.cumsum(d, 1) - d[:, :1]
+    return [np.ascontiguousarray(a, np.float32) for a in (pos, yaw[:, 0], r.uniform(0, 12, G))]
+
+
+@pytest.mark.cuda
+def test_retrack_kernel_matches_plain(cuda_device):
+    """Free-running, a candidate whose step meets a threshold (a near-tied
+    closest point, a brake or throttle-floor test) on one side only takes
+    another path from there on, so the kernel and the plain version are
+    compared step by step: every step of the kernel's rollout, replayed
+    through the plain version from the kernel's own state, agrees within
+    1e-4 unless one of the step's decisions lies within 1e-5 (relative)
+    of a tie; after the first such step the candidate is not compared
+    further, and at most 1% of candidates may meet one. Free-running, a
+    candidate that differs by more than 2e-3 (the JAX package's bound for
+    its own kernel against the scan) must have met a decision within 1e-4
+    of a tie before it parted, and at most 1% may.
+
+    Measured on an H100 (80GB HBM3, 700 W): one-step errors at most
+    1.5e-5 (an ulp of a 200 m coordinate); 2 of 300 candidates meet a
+    near-tie in the replay (a brake ratio 1.5e-6 and a closest point
+    2.4e-8 from a tie) and stay within 1e-5 free-running; 1 of 300
+    (candidate 7) diverges: at step 11 the speed PID's throttle lies
+    1.8e-7 from the 0.3 throttle floor along the plain rollout and 5.3e-5
+    along the kernel's, on the other side, so one coasts and the other
+    follows the throttle polynomial, and the paths part from row 12."""
+    G, T = 300, 40
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _retrack_inputs(np.random.default_rng(3), G, T)]
+    got = retrack_rollout(*args)
+    torch.cuda.synchronize()
+    ref = retrack_rollout_ref(*args)
+    err = torch.stack([(a - b).abs().reshape(G, -1).amax(1) for a, b in zip(got, ref)]).amax(0)
+    diverged = err > 2e-3
+    print(f"free-running: {int(diverged.sum())} of {G} diverged, max error of the others "
+          f"{err[~diverged].max().item():.3g}")
+
+    step_err, margins = _replay(args[0], got)
+    _, ref_margins = _replay(args[0], ref)
+    gap = torch.stack([(a - b).abs().reshape(G, T, -1).amax(-1) for a, b in zip(got, ref)]).amax(0)
+    tie = torch.stack(list(margins.values())).amin(0) < 1e-5
+    off = (step_err > 1e-4) & ~tie
+    # steps after a candidate's first near-tie are not compared
+    after = torch.cumsum(tie.int(), 1) - tie.int() > 0
+    parted = tie.any(1)
+    print(f"replayed: max one-step error {step_err[~after].max().item():.3g}, "
+          f"{int(parted.sum())} candidates meet a near-tie")
+    near = lambda ms, g: {k: f"{m[g].min().item():.3g}@{int(m[g].argmin())}" for k, m in ms.items()}
+    for g in torch.nonzero(diverged | parted).flatten().tolist():
+        t = int(torch.nonzero(tie[g]).min()) if parted[g] else None
+        onset = torch.nonzero(gap[g] > 1e-4)
+        print(f"candidate {g}: free-running error {err[g].item():.3g} (above 1e-4 from row "
+              f"{int(onset.min()) if len(onset) else None}), first near-tie at step {t}, "
+              f"smallest margins (value@step) along the kernel's rollout {near(margins, g)}, "
+              f"along the plain one {near(ref_margins, g)}")
+    assert not (off & ~after).any(), torch.nonzero(off & ~after)[:10].tolist()
+    assert parted.float().mean().item() <= 0.01
+    # a free-running divergence starts at a step that one of the two
+    # rollouts takes within 1e-4 of a tie
+    both = torch.stack(list(margins.values()) + list(ref_margins.values())).amin(0)
+    for g in torch.nonzero(diverged).flatten().tolist():
+        onset = int(torch.nonzero(gap[g] > 1e-4).min())
+        assert both[g, :onset].min().item() < 1e-4, g
+    assert diverged.float().mean().item() <= 0.01
+
+
+@pytest.mark.cuda
+def test_refline_kernel_matches_plain(cuda_device):
+    r = np.random.default_rng(4)
+    BR, MT, Nr = 64, 480, 120
+    # line points 1 m apart along x; candidates at x = k + 0.25 never tie
+    cand = np.stack([r.integers(0, 110, (BR, MT)) + 0.25, r.uniform(-5, 5, (BR, MT))], -1)
+    ref = np.stack(np.broadcast_arrays(np.arange(Nr, dtype=np.float32), np.zeros((BR, 1))), -1)
+    valid = np.arange(Nr) < r.integers(1, Nr + 1, (BR, 1))
+    valid[3] = False  # an empty line: index 0, as an argmin over all-inf
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda_device)
+    args = (f(cand), f(r.uniform(-3, 3, (BR, MT))), f(ref), f(r.uniform(-0.1, 0.1, (BR, Nr))),
+            torch.from_numpy(valid).to(cuda_device))
+    dis, ang, idx = refline_matrices(*args, return_index=True)
+    torch.cuda.synchronize()
+    rdis, rang, ridx = refline_matrices_ref(*args, return_index=True)
+    assert torch.equal(idx, ridx)
+    torch.testing.assert_close(dis, rdis, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ang, rang, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_attention_function_gradient_matches_plain(cuda_device):
+    B, Tq, Tk, D, H = ATTN_CASES["m2m_t12"]
+    arrs = [torch.from_numpy(a).to(cuda_device) for a in attn_inputs(B, Tq, Tk, D, H)]
+    w = torch.randn(B, Tq, D, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(0))
+    grads = []
+    for fn in (fused_attention, fused_attention_ref):
+        xs = [a.clone().requires_grad_(True) for a in arrs[:4]]
+        out = fn(*xs, arrs[4], H)
+        assert out.grad_fn is not None
+        (out * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    for g, ref in zip(*grads):
+        torch.testing.assert_close(g, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_points_function_gradient_matches_plain(cuda_device):
+    r = np.random.default_rng(5)
+    x = torch.from_numpy(r.normal(0, 2.0, (64, 20, 10)).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy(r.random((64, 20)) < 0.7).to(cuda_device)
+    w = [torch.from_numpy(a).to(cuda_device) for a in points_weights(6, 10, 128)]
+    g = torch.from_numpy(r.normal(0, 1, (64, 128)).astype(np.float32)).to(cuda_device)
+    grads = []
+    for fn in (lambda *a: points_encoder(*a, 128), points_forward_ref):
+        xs = [t.clone().requires_grad_(True) for t in (x, *w)]
+        out = fn(xs[0], mask, xs[1:])
+        assert out.grad_fn is not None
+        (out * g).sum().backward()
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
