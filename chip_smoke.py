@@ -1,30 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of rift_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, and drives the Pluto CBV
+holds each against its plain PyTorch version, drives the Pluto CBV
 planner's eval step, its train step (the GRPO evaluator) and a fine-tune
-round at full width.
+round at full width, then the closed loop: Runner.eval and
+Runner.train_cbv at the bench configuration.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. build the four kernels from rift_tpu_torch/csrc (one nvcc each,
+  1. build the five kernels from rift_tpu_torch/csrc (one nvcc each,
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain version at the main path's shapes:
      attention in f32 (atol 1e-5) and bf16 (atol 2e-2), the PointNet in
      f32 (atol 1e-4), the retrack rollout (at most 1% of the 9216
-     candidates diverging by more than 2e-3) and the refline matrices (at
-     most 1% of the nearest points flipped, 1e-4 elsewhere); time kernel,
-     plain version and, for attention, PyTorch's
-     scaled_dot_product_attention (timed only; the port never calls it);
-     then the gradients through the attention and PointNet autograd
-     Functions against the plain versions' gradients (f32, atol 1e-4);
+     candidates diverging by more than 2e-3), the refline matrices (at
+     most 1% of the nearest points flipped, 1e-4 elsewhere) and the
+     HistoryEncoder stage at its three levels in f32 (atol 1e-4); time
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call (scaled_dot_product_attention, nn.Transformer-
+     Encoder; timed only, the port never calls them); then the gradients
+     through the attention, PointNet and stage autograd Functions against
+     the plain versions' gradients (f32, atol 1e-4);
   3. build the grid town (blocks=2, 2 lanes per direction) and reset
      TrafficEnv at S=64 scenarios x A=24 agents x C=3 CBVs for three seeds,
      with CBVs forced on slots 1..3 and a constant-speed history;
   4. a full-width PlutoModel (encoder and decoder depth 4, bf16 compute)
      from seeded weights: canonical map tokens once, then the eval
      pluto_cbv_act on each scene, with the launch counters read around
-     that run;
+     that run (17 attention and 3 stage launches per call);
   5. one scene again in f32, through the kernels and through the plain
      versions on the card: the waypoints must agree within 1e-3 where the
      CBV mask holds;
@@ -37,7 +40,17 @@ Phases (any failure raises and exits non-zero):
   8. the three scenes' samples (576) appended to a ring buffer of 512,
      then two fine-tune rounds of `fit` (2 epochs, 1 warmup, batch 256: 4
      steps each), counters read around each: finite losses, pi_head moved,
-     every other parameter bit-identical.
+     every other parameter bit-identical;
+  9. the closed loop at the bench configuration (S=64, A=24, C=3, depth 4,
+     bf16, chunks of K=40 ticks; CBVs from rule recognition after tick
+     25), counters read around each run: Runner.eval over two chunks;
+     Runner.train_cbv over two chunks of train ticks, which fill its
+     1024-sample buffer, then one fit round (16 epochs of 4 steps), pi_head
+     moved and nothing else; world-only, eval and train env-steps/s timed
+     as bench.py times them (K=40 chunks from the same reset, after a
+     warm-up chunk, best of two); and one K=40 f32 eval chunk through the
+     kernels and through the plain versions, at most 2% of the agents
+     ending more than 1e-2 m apart.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -59,18 +72,21 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
 DIM, HEADS, MODES, REFS, POINTS = 128, 4, 12, 4, 120
 TOKENS = 32 + 64 + 1  # agents + map polygons + static objects
 HIST = ((20, 32, 2), (10, 64, 4), (5, 128, 8))  # (T, D, H) per level, 2 blocks each
+WINDOWS = (3, 3, 5)  # band width per level
 EVAL_FRAMES = 40  # the GRPO evaluator's horizon
+CHUNK = 40  # closed-loop ticks per rollout_chunk call, as bench.py's K
+ACT_ATTENTION, ACT_STAGES = 17, 3  # launches per planner forward
+# f32 closed loop, kernels vs plain versions: the most agents that may end
+# apart, as a share of the agents that were CBVs and of all agents
+LOOP_CBVS_APART, LOOP_AGENTS_APART = 0.05, 0.01
 
 
 def attention_shapes():
     """(B, Tq, Tk, D, H, kind) of the attention launches of one act call at
-    S x C = 192 CBVs: HistoryEncoder blocks over S*A world agents, the ego
-    state encoder, the scene encoder and the decoder."""
-    B, Bw = S * C, S * A
-    out = []
-    for T, D, H in HIST:
-        out += [(Bw, T, T, D, H, "self")] * 2
-    out.append((B, 1, 6, DIM, HEADS, "sep"))
+    S x C = 192 CBVs: the ego state encoder, the scene encoder and the
+    decoder (the HistoryEncoder's attention runs inside the stage kernel)."""
+    B = S * C
+    out = [(B, 1, 6, DIM, HEADS, "sep")]
     out += [(B, TOKENS, TOKENS, DIM, HEADS, "self")] * 4
     for _ in range(4):
         out += [
@@ -123,7 +139,7 @@ def attention_inputs(torch, gen, shape, dtype):
 
 def check_attention(torch, attention):
     """Kernel vs plain version at each main-path shape family, f32 and
-    bf16; then times of one act call's 23 launches (bf16, as the model
+    bf16; then times of one act call's 17 launches (bf16, as the model
     runs them)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = attention_shapes()
@@ -332,16 +348,108 @@ def check_refline(torch, refline):
     }
 
 
+def stage_inputs(torch, gen, N, T, D, H, window):
+    """One HistoryEncoder level's stage operands at the main path's shape:
+    x [N, T, D], the 24 block weights (LN scales near 1, fan-in scaled
+    matrices) and the two band-plus-RPB biases."""
+    from rift_tpu_torch.models.pluto.layers import band_rpb_bias
+    from rift_tpu_torch.ops.history import STAGE_WNAMES, weight_shapes
+
+    dev = "cuda"
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    ws = []
+    for name, shape in zip(STAGE_WNAMES * 2, weight_shapes(D) * 2):
+        if name.endswith("scale"):
+            ws.append(1.0 + 0.1 * rn(*shape))
+        elif len(shape) == 1:
+            ws.append(0.1 * rn(*shape))
+        else:
+            ws.append(rn(*shape) / math.sqrt(shape[0]))
+    biases = [band_rpb_bias(0.5 * rn(H, 2 * window - 1), T, window) for _ in range(2)]
+    return rn(N, T, D), ws, biases
+
+
+def library_stage(torch, D, H, ws, biases, N):
+    """nn.TransformerEncoder (2 pre-LN layers, tanh GELU, feed-forward 3D)
+    loaded with one stage's weights, and its float attention mask
+    [N*H, T, T]: one PyTorch call of the same function (timed only)."""
+    F = torch.nn.functional
+    layer = torch.nn.TransformerEncoderLayer(
+        D, H, dim_feedforward=3 * D, dropout=0.0,
+        activation=lambda x: F.gelu(x, approximate="tanh"),
+        layer_norm_eps=1e-5, batch_first=True, norm_first=True,
+    )
+    enc = torch.nn.TransformerEncoder(layer, 2, enable_nested_tensor=False).cuda().eval()
+    with torch.no_grad():
+        for blk, lay in enumerate(enc.layers):
+            w = ws[12 * blk:12 * blk + 12]
+            lay.norm1.weight.copy_(w[0]), lay.norm1.bias.copy_(w[1])
+            lay.self_attn.in_proj_weight.copy_(w[2].T), lay.self_attn.in_proj_bias.copy_(w[3])
+            lay.self_attn.out_proj.weight.copy_(w[4].T), lay.self_attn.out_proj.bias.copy_(w[5])
+            lay.norm2.weight.copy_(w[6]), lay.norm2.bias.copy_(w[7])
+            lay.linear1.weight.copy_(w[8].T), lay.linear1.bias.copy_(w[9])
+            lay.linear2.weight.copy_(w[10].T), lay.linear2.bias.copy_(w[11])
+    # the library applies one mask to both layers: block 0's bias
+    mask = biases[0][None].expand(N, -1, -1, -1).reshape(N * H, *biases[0].shape[1:])
+    return enc, mask.contiguous()
+
+
+def check_history(torch, history):
+    """Stage kernel vs plain version at the three HistoryEncoder levels of
+    one act call (N = S*A history rows), f32, atol 1e-4 (two LocalBlocks,
+    products up to 3D = 384 deep summed in another order); times of the
+    three launches against the plain version and nn.TransformerEncoder,
+    whose error against the kernel (both blocks given block 0's bias, as
+    its one mask) is reported, not bounded."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    N = S * A
+    calls, err, lib_err, flops, nbytes = [], 0.0, 0.0, 0, 0
+    for (T, D, H), window in zip(HIST, WINDOWS):
+        x, ws, biases = stage_inputs(torch, gen, N, T, D, H, window)
+        got = history.local_stage(x, ws, *biases, H)
+        ref = history.local_stage_ref(x, ws, *biases, H)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        err = max(err, e)
+        if not e <= 1e-4:
+            raise AssertionError(f"history stage T={T} D={D}: max err {e} > 1e-4")
+        enc, mask = library_stage(torch, D, H, ws, biases, N)
+        with torch.no_grad():
+            same = history.local_stage(x, ws, biases[0], biases[0], H)
+            lib_err = max(lib_err, (enc(x, mask=mask) - same).abs().max().item())
+        calls.append((x, ws, biases, H, (enc, mask)))
+        R = N * T
+        # per block: qkv, out, mlp1, mlp2 products and the T x T attention
+        flops += 2 * (2 * R * 10 * D * D + 4 * R * T * D)
+        nbytes += 4 * (2 * x.numel() + sum(w.numel() for w in ws) + 2 * biases[0].numel())
+    bound, by = bound_ms(nbytes, flops, "float32")
+    with torch.no_grad():
+        lib_ms = cuda_ms(torch, lambda: [enc(x, mask=m) for x, _, _, _, (enc, m) in calls])
+    return {
+        "ms": cuda_ms(torch, lambda: [history.local_stage(x, w, *b, H) for x, w, b, H, _ in calls]),
+        "plain_ms": cuda_ms(torch, lambda: [history.local_stage_ref(x, w, *b, H)
+                                            for x, w, b, H, _ in calls]),
+        "library_ms": lib_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "max_abs_err": err,
+        "library_max_abs_err": lib_err,
+        "gflop": flops / 1e9,
+        "timed_work": f"the 3 launches of one act call, N={N} rows, (T, D, H) = {HIST}, f32",
+    }
+
+
 def make_scene(torch, tmap, seed):
-    """Reset S scenarios, force CBVs on slots 1..C (recognition needs a
-    warm-up the world tick provides; it comes with the next slice) and give
-    every live agent a 2 s constant-speed history along its heading."""
+    """Reset S scenarios, force CBVs on slots 1..C and give every live agent
+    a 2 s constant-speed history along its heading: a full act step at
+    tick 0, where rule recognition has not run yet (phase 9's closed loop
+    recognizes its CBVs after the warm-up)."""
     from rift_tpu_torch.scenario import TrafficEnv, wake_all_bvs
 
     env = TrafficEnv(
         tmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=seed, device=tmap.device
     )
-    state, spec = env.reset()
+    state, _, spec = env.reset()
     state = wake_all_bvs(state)
     cbv = torch.zeros_like(state.is_cbv)
     cbv[:, 1:C + 1] = state.alive[:, 1:C + 1]
@@ -366,18 +474,21 @@ def make_scene(torch, tmap, seed):
     return state, spec
 
 
-def check_gradients(torch, attention, points):
+def check_gradients(torch, attention, points, history):
     """The autograd Functions around the kernels: gradients through the
     kernels equal the plain versions' gradients (both backwards recompute
-    through the plain version) at one HistoryEncoder attention shape and
-    one per-sample map PointNet shape, f32."""
+    through the plain version) at the scene encoder's attention shape, one
+    per-sample map PointNet shape and the first HistoryEncoder stage, f32."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     err = {}
-    B, T, D, H = S * A, 20, 32, 2  # the first HistoryEncoder level
+    B, T, D, H = S * C, TOKENS, DIM, HEADS  # the scene encoder
     args = attention_inputs(torch, gen, (B, T, T, D, H, "sep"), torch.float32)
     w = torch.randn(B, T, D, generator=gen, device="cuda")
     x, mask, pw = points_inputs(torch, gen, 256 * 64, 20, 10, False)
     g = torch.randn(x.shape[0], DIM, generator=gen, device="cuda")
+    (Ts, Ds, Hs), window = HIST[0], WINDOWS[0]
+    hx, hw, hb = stage_inputs(torch, gen, S * A, Ts, Ds, Hs, window)
+    hg = torch.randn(hx.shape, generator=gen, device="cuda")
     cases = {
         "fused_attention": (
             lambda xs: attention.fused_attention(*xs, args[4], H),
@@ -385,6 +496,10 @@ def check_gradients(torch, attention, points):
         "points_encoder": (
             lambda xs: points.points_encoder(xs[0], mask, xs[1:], DIM),
             lambda xs: points.points_forward_ref(xs[0], mask, xs[1:]), [x, *pw], g),
+        "local_stage": (
+            lambda xs: history.local_stage(xs[0], xs[3:], xs[1], xs[2], Hs),
+            lambda xs: history.local_stage_ref(xs[0], xs[3:], xs[1], xs[2], Hs),
+            [hx, *hb, *hw], hg),
     }
     for name, (kernel, plain, inputs, weight) in cases.items():
         grads = []
@@ -437,6 +552,176 @@ def train_samples(torch, out):
     return samples, flat(out["cbv_slots"] >= 0)
 
 
+def act_launches(n_calls, train=False, map_tokens=False):
+    """Kernel launches of n planner act calls (eval or train) and, when the
+    canonical map tokens are computed in the same run, their PointNet."""
+    return {
+        "fused_attention": ACT_ATTENTION * n_calls,
+        "points_encoder": n_calls + int(map_tokens),
+        "retrack_rollout": n_calls if train else 0,
+        "refline_matrices": n_calls if train else 0,
+        "local_stage": ACT_STAGES * n_calls,
+    }
+
+
+def fit_launches(steps):
+    """Per fit step: one forward on the batch's per-sample features (its
+    attention and stages; the per-sample map rows and the ref lines through
+    the PointNet)."""
+    return {"fused_attention": ACT_ATTENTION * steps, "points_encoder": 2 * steps,
+            "retrack_rollout": 0, "refline_matrices": 0, "local_stage": ACT_STAGES * steps}
+
+
+def add(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def check_counts(path, got, want):
+    if got != want:
+        raise AssertionError(f"{path} launches {got}, expected {want}")
+
+
+def params_moved(torch, model, before):
+    """(total |change| of pi_head, names of other parameters that changed)."""
+    moved, changed = 0.0, []
+    for n, p in model.named_parameters():
+        if n.startswith("planning_decoder.pi_head"):
+            moved += (p.detach() - before[n]).abs().sum().item()
+        elif not torch.equal(p.detach(), before[n]):
+            changed.append(n)
+    return moved, changed
+
+
+def closed_loop(torch, tmap, kernel_modules, plain_versions, kernel_versions):
+    """Phase 9: the Runner's eval and fine-tune rounds at the bench
+    configuration, env-steps/s as bench.py measures them, and an f32 eval
+    chunk through the kernels against the plain versions."""
+    from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens
+    from rift_tpu_torch.rollout import rollout_chunk
+    from rift_tpu_torch.runner import Runner, RunnerConfig
+
+    t0 = time.perf_counter()
+    cfg = RunnerConfig(num_scenarios=S, num_agents=A, max_cbvs=C, max_episode_ticks=2 * CHUNK)
+    runner = Runner(tmap, cfg)
+    acts = cfg.max_episode_ticks
+    out, launches = {}, {}
+
+    # Runner.eval: one episode of two K=40 chunks
+    zero_launches(kernel_modules)
+    t1 = time.perf_counter()
+    stats = runner.eval(num_episodes=1, chunk=CHUNK)
+    torch.cuda.synchronize()
+    out["runner_eval_s"] = time.perf_counter() - t1
+    launches["closed_loop_eval"] = read_launches(kernel_modules)
+    check_counts("Runner.eval", launches["closed_loop_eval"], act_launches(acts, map_tokens=True))
+    recs = runner.stats.records
+    promoted = sum(r.cbv_count for r in recs)
+    if stats.total_routes != S or not 0.0 <= stats.avg_route_completion <= 100.0 or promoted == 0:
+        raise AssertionError(f"Runner.eval: {stats.total_routes} routes, RC "
+                             f"{stats.avg_route_completion}, {promoted} CBVs promoted")
+    if not all(math.isfinite(r.driving_score) for r in recs):
+        raise AssertionError("Runner.eval: non-finite driving scores")
+    out["eval_stats"] = {
+        "avg_driving_score": stats.avg_driving_score,
+        "avg_route_completion": stats.avg_route_completion,
+        "cbvs_promoted": promoted,
+        "cbv_mean_speed": stats.cbv_mean_speed,
+        "route_progress_m": stats.route_progress_m,
+    }
+
+    # Runner.train_cbv: two chunks of train ticks fill the buffer, then fit
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    zero_launches(kernel_modules)
+    t1 = time.perf_counter()
+    losses = runner.train_cbv(num_episodes=1, chunk=CHUNK)
+    torch.cuda.synchronize()
+    out["runner_train_cbv_s"] = time.perf_counter() - t1
+    launches["closed_loop_train"] = read_launches(kernel_modules)
+    if runner.train_rounds != 1:
+        raise AssertionError(f"Runner.train_cbv: buffer holds {runner.buffer.size} of "
+                             f"{cfg.buffer_capacity} after {acts} ticks; no fit round")
+    steps = cfg.train.epochs * (cfg.buffer_capacity // cfg.train.batch_size)
+    check_counts("Runner.train_cbv", launches["closed_loop_train"],
+                 add(act_launches(acts, train=True), fit_launches(steps)))
+    moved, changed = params_moved(torch, runner.model, before)
+    if not (all(math.isfinite(x) for x in losses[0]) and moved > 0.0) or changed:
+        raise AssertionError(f"train_cbv: losses {losses}, pi_head moved {moved}, "
+                             f"other params changed: {changed}")
+    out["fit"] = {"steps": steps, "epoch_losses": losses[0], "pi_head_abs_delta": moved}
+
+    # env-steps/s as bench.py: K=40 chunks from one reset, after a warm-up
+    # chunk, the best of two trials
+    state0, crit0, spec = runner.env.reset()
+    tok = runner._map_tokens()
+
+    def steps_per_s(chunks, **kw):
+        run = lambda s, c, k: rollout_chunk(runner.model, tmap, spec, s, c, max_cbvs=C,
+                                            num_steps=CHUNK, map_tok=tok, tick=k * CHUNK, **kw)
+        run(state0, crit0, 0)
+        best = math.inf
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s, c = state0, crit0
+            for k in range(chunks):
+                s, c, _ = run(s, c, k)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t1)
+        return chunks * CHUNK * S / best
+
+    out["world_only_env_steps_per_s"] = steps_per_s(2, with_policy=False)
+    out["eval_env_steps_per_s"] = steps_per_s(2)
+    out["train_env_steps_per_s"] = steps_per_s(1, train=True)
+
+    # one f32 eval chunk from the reset through the kernels and through the
+    # plain versions, a tick at a time to record every agent that was a CBV
+    # (recognised from tick 26 on). The loop is chaotic (a near-tied
+    # candidate choice, nearest-lane and collision flags), so the share of
+    # agents ending apart is bounded, not forbidden: among the agents that
+    # were CBVs in either run, which act on the kernels' output, and among
+    # all agents
+    model32 = PlutoModel(encoder_depth=cfg.encoder_depth, decoder_depth=cfg.decoder_depth,
+                         dtype=torch.float32).eval()
+    model32.load_state_dict(runner.model.state_dict())
+
+    def f32_chunk():
+        tok32 = canonical_map_tokens(model32, tmap)
+        s, c, ever_cbv = state0, crit0, state0.is_cbv.clone()
+        for k in range(CHUNK):
+            s, c, _ = rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C, num_steps=1,
+                                    map_tok=tok32, tick=k)
+            ever_cbv |= s.is_cbv
+        return s, ever_cbv
+
+    got, got_cbv = f32_chunk()
+    plain_versions()
+    try:
+        ref, ref_cbv = f32_chunk()
+    finally:
+        kernel_versions()
+    torch.cuda.synchronize()
+    cbv = got_cbv | ref_cbv
+    if not torch.isfinite(got.pos).all() or not bool(cbv.any()):
+        raise AssertionError("f32 closed loop: non-finite positions or no CBV")
+    apart = torch.linalg.norm(got.pos - ref.pos, dim=-1) > 1e-2
+    apart |= got.is_cbv != ref.is_cbv
+    cbv_share = apart[cbv].float().mean().item()
+    share = apart.float().mean().item()
+    if not (cbv_share <= LOOP_CBVS_APART and share <= LOOP_AGENTS_APART):
+        raise AssertionError(
+            f"f32 closed loop: {cbv_share} of {int(cbv.sum())} CBVs apart (bound "
+            f"{LOOP_CBVS_APART}), {share} of all agents apart (bound {LOOP_AGENTS_APART})"
+        )
+    out["f32_cbvs"] = int(cbv.sum())
+    out["f32_cbvs_apart_share"] = cbv_share
+    out["f32_agents_apart_share"] = share
+    out["f32_max_pos_err_of_the_rest"] = (
+        (got.pos - ref.pos)[~apart].abs().max().item() if (~apart).any() else 0.0
+    )
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -451,17 +736,17 @@ def main() -> int:
     from rift_tpu_torch.map import make_grid_town
     from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
     from rift_tpu_torch.models.pluto import layers
-    from rift_tpu_torch.ops import attention, build, points, refline, retrack
+    from rift_tpu_torch.ops import attention, build, history, points, refline, retrack
     from rift_tpu_torch.rl import TrainConfig, fit, rift_loss_fn, ring_append, ring_init
     from rift_tpu_torch.rl import evaluator
 
     kernel_modules = {
         "fused_attention": attention, "points_encoder": points,
-        "retrack_rollout": retrack, "refline_matrices": refline,
+        "retrack_rollout": retrack, "refline_matrices": refline, "local_stage": history,
     }
     t0 = time.perf_counter()
     # ---- phase 1: build
-    logs = build.build_all(["attention", "points", "retrack", "refline"])
+    logs = build.build_all(["attention", "points", "retrack", "refline", "history_stage"])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -480,8 +765,9 @@ def main() -> int:
         "points_encoder": check_points(torch, points, tmap.num_lanes),
         "retrack_rollout": check_retrack(torch, retrack),
         "refline_matrices": check_refline(torch, refline),
+        "local_stage": check_history(torch, history),
     }
-    grad_err = check_gradients(torch, attention, points)
+    grad_err = check_gradients(torch, attention, points, history)
     print(f"# map L={tmap.num_lanes}, kernels checked {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
 
@@ -492,6 +778,7 @@ def main() -> int:
     # ---- phase 4: the eval act step at full width
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
+    launches = {}
     zero_launches(kernel_modules)
     map_tok = canonical_map_tokens(model, tmap)
     outs = [
@@ -499,14 +786,8 @@ def main() -> int:
         for state, spec in scenes
     ]
     torch.cuda.synchronize()
-    eval_launches = read_launches(kernel_modules)
-    want = {
-        "fused_attention": len(attention_shapes()) * len(scenes),
-        "points_encoder": 1 + len(scenes),
-        "retrack_rollout": 0, "refline_matrices": 0,
-    }
-    if eval_launches != want:
-        raise AssertionError(f"eval-path launches {eval_launches}, expected {want}")
+    launches["eval_act"] = read_launches(kernel_modules)
+    check_counts("eval act", launches["eval_act"], act_launches(len(scenes), map_tokens=True))
     for out in outs:
         valid = int((out["cbv_slots"] >= 0).sum())
         if valid != S * C:
@@ -524,7 +805,7 @@ def main() -> int:
     model32 = PlutoModel(encoder_depth=4, decoder_depth=4, dtype=torch.float32).eval()
     model32.load_state_dict(model.state_dict())
     tok32 = canonical_map_tokens(model32, tmap)
-    kernel_fns = (layers.fused_attention, layers.points_encoder,
+    kernel_fns = (layers.fused_attention, layers.points_encoder, layers.local_stage,
                   evaluator.refline_matrices, evaluator.retrack_rollout)
 
     def plain_versions():
@@ -532,11 +813,12 @@ def main() -> int:
         layers.points_encoder = (
             lambda x, m, w, out_dim, has_ln=True: points.points_forward_ref(x, m, w, has_ln)
         )
+        layers.local_stage = history.local_stage_ref
         evaluator.refline_matrices = refline.refline_matrices_ref
         evaluator.retrack_rollout = retrack.retrack_rollout_ref
 
     def kernel_versions():
-        (layers.fused_attention, layers.points_encoder,
+        (layers.fused_attention, layers.points_encoder, layers.local_stage,
          evaluator.refline_matrices, evaluator.retrack_rollout) = kernel_fns
 
     got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, map_tok=tok32)
@@ -562,14 +844,8 @@ def main() -> int:
         for state_, spec_ in scenes
     ]
     torch.cuda.synchronize()
-    train_launches = read_launches(kernel_modules)
-    want = {
-        "fused_attention": len(attention_shapes()) * len(scenes),
-        "points_encoder": len(scenes),
-        "retrack_rollout": len(scenes), "refline_matrices": len(scenes),
-    }
-    if train_launches != want:
-        raise AssertionError(f"train-act launches {train_launches}, expected {want}")
+    launches["train_act"] = read_launches(kernel_modules)
+    check_counts("train act", launches["train_act"], act_launches(len(scenes), train=True))
     for out in train_outs:
         valid = out["adv_valid"]
         n_valid = int(valid.sum())
@@ -626,24 +902,20 @@ def main() -> int:
         losses += fit(model, buf, rift_loss_fn, cfg, gen, round_idx=round_idx)
         torch.cuda.synchronize()
         fit_ms.append((time.perf_counter() - t1) * 1e3 / steps)
-        fit_launches = read_launches(kernel_modules)
-        # per forward: 23 attentions; the per-sample map rows and the ref lines
-        want = {"fused_attention": 23 * steps, "points_encoder": 2 * steps,
-                "retrack_rollout": 0, "refline_matrices": 0}
-        if fit_launches != want:
-            raise AssertionError(f"fit launches {fit_launches}, expected {want}")
+        launches["fit"] = read_launches(kernel_modules)
+        check_counts("fit", launches["fit"], fit_launches(steps))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"fit losses {losses}")
-    moved, changed = 0.0, []
-    for n, p in model.named_parameters():
-        d = (p.detach() - before[n]).abs().sum().item()
-        if n.startswith("planning_decoder.pi_head"):
-            moved += d
-        elif not torch.equal(p.detach(), before[n]):
-            changed.append(n)
+    moved, changed = params_moved(torch, model, before)
     if not moved > 0.0 or changed:
         raise AssertionError(f"fit moved pi_head by {moved}; other params changed: {changed}")
     print(f"# fit done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+    # ---- phase 9: the closed loop
+    loop, loop_launches = closed_loop(torch, tmap, kernel_modules, plain_versions,
+                                      kernel_versions)
+    launches.update(loop_launches)
+    print(f"# closed loop done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
     kernels = []
     sources = {
@@ -651,17 +923,19 @@ def main() -> int:
         "points_encoder": ("rift_tpu_torch/csrc/points.cu", "rift_tpu/ops/points.py:116"),
         "retrack_rollout": ("rift_tpu_torch/csrc/retrack.cu", "rift_tpu/ops/retrack.py:234"),
         "refline_matrices": ("rift_tpu_torch/csrc/refline.cu", "rift_tpu/ops/refline.py:88"),
+        "local_stage": ("rift_tpu_torch/csrc/history_stage.cu", "rift_tpu/ops/history.py:359"),
     }
     for name, r in results.items():
         src, replaces = sources[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": train_launches[name],
-            "launches_by_path": {"eval_act": eval_launches[name],
-                                 "train_act": train_launches[name], "fit": fit_launches[name]},
+            # the closed-loop fine-tune run (Runner.train_cbv) launches all five
+            "launches": launches["closed_loop_train"][name],
+            "launches_by_path": {path: c[name] for path, c in launches.items()},
             **r,
         })
     print(json.dumps({
+        "card": card,
         "act_step": {
             "ms_per_call": act_ms, "scenarios": S, "agents": A, "cbvs": C,
             "dtype": "bfloat16", "f32_traj_max_abs_err": traj_err,
@@ -677,6 +951,7 @@ def main() -> int:
             "steps_per_round": steps, "batch": cfg.batch_size,
             "buffer": buf.size, "epoch_losses": losses, "pi_head_abs_delta": moved,
         },
+        "closed_loop": loop,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

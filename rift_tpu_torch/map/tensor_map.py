@@ -147,6 +147,26 @@ class TensorMap(TensorDataclass):
         signed_lateral, heading)."""
         return project_point_to_polyline(self.centerline[lane_idx], point)
 
+    def road_clearance(self, point: torch.Tensor) -> torch.Tensor:
+        """Bilinear-sampled signed road clearance (m) of (..., 2) points:
+        >= 0 inside a lane, < 0 outside."""
+        ry, rx = self.drivable_clearance.shape
+        cell = (point - self.grid_origin) * self.drivable_inv_cell - 0.5
+        cx = torch.clamp(cell[..., 0], 0.0, rx - 1.001)
+        cy = torch.clamp(cell[..., 1], 0.0, ry - 1.001)
+        x0 = cx.to(torch.int32).long()
+        y0 = cy.to(torch.int32).long()
+        fx, fy = cx - x0, cy - y0
+        g = self.drivable_clearance
+        top = g[y0, x0] + (g[y0, x0 + 1] - g[y0, x0]) * fx
+        bot = g[y0 + 1, x0] + (g[y0 + 1, x0 + 1] - g[y0 + 1, x0]) * fx
+        return top + (bot - top) * fy
+
+    def on_road(self, point: torch.Tensor, margin: float = 0.3) -> torch.Tensor:
+        """Drivable-area test of (..., 2) points on the clearance raster
+        (the world tick's off-road flag)."""
+        return self.road_clearance(point) >= -margin
+
     def on_road_raster(self, point: torch.Tensor) -> torch.Tensor:
         """Raster drivable-area test of (..., 2) points: one gather per
         point (the evaluator's bulk off-road query)."""

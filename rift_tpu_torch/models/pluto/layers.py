@@ -10,6 +10,7 @@ and softmax in f32, as the JAX package does.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import NEG_INF, fused_attention
+from ...ops.history import STAGE_WNAMES, local_stage
 from ...ops.points import points_encoder
 
 
@@ -264,23 +266,20 @@ class TransformerEncoderLayer(nn.Module):
 
 
 # ---------------------------------------------------------------- history
-DEPTHS = (2, 2, 2)
+DEPTHS = (2, 2, 2)  # LocalBlocks per level: one fused stage each
 HEADS = (2, 4, 8)
 WINDOWS = (3, 3, 5)
 
 
-def block_dims(embed_dim: int, depths=DEPTHS):
-    dims, d = [], embed_dim
-    for level, depth in enumerate(depths):
-        dims += [d] * depth
-        if level < len(depths) - 1:
-            d *= 2
-    return dims
+def block_dims(embed_dim: int):
+    """Width of each LocalBlock: embed_dim, doubled at every level."""
+    return [embed_dim * 2 ** lv for lv, depth in enumerate(DEPTHS) for _ in range(depth)]
 
 
-def band_rpb_bias(rpb: torch.Tensor, n: int, window: int) -> torch.Tensor:
-    """[H, n, n] additive bias: clamped neighborhood band (0 / -1e9) plus
-    the natten relative-position bias (rift_tpu/ops/history.py)."""
+@functools.lru_cache(maxsize=None)
+def _band_index(n: int, window: int, device: torch.device):
+    """The clamped neighborhood band (0 / -1e9) [n, n] and the relative
+    offset index [n, n] into a [H, 2w-1] RPB, on `device`, made once."""
     w = min(window, n)
     i = np.arange(n)
     start = np.clip(i - (w - 1) // 2, 0, n - w)
@@ -288,7 +287,14 @@ def band_rpb_bias(rpb: torch.Tensor, n: int, window: int) -> torch.Tensor:
     near = (j[None, :] >= start[:, None]) & (j[None, :] < start[:, None] + w)
     band = torch.from_numpy(np.where(near, 0.0, -1e9).astype(np.float32))
     rel = np.clip(i[None, :] - i[:, None] + (window - 1), 0, 2 * window - 2)
-    return band.to(rpb.device)[None] + rpb[:, torch.from_numpy(rel).to(rpb.device)]
+    return band.to(device), torch.from_numpy(rel).to(device)
+
+
+def band_rpb_bias(rpb: torch.Tensor, n: int, window: int) -> torch.Tensor:
+    """[H, n, n] additive bias: clamped neighborhood band (0 / -1e9) plus
+    the natten relative-position bias (rift_tpu/ops/history.py)."""
+    band, rel = _band_index(n, window, rpb.device)
+    return band[None] + rpb[:, rel]
 
 
 def resize_matrix(src: int, dst: int) -> np.ndarray:
@@ -318,43 +324,32 @@ def conv3(x, w, b, stride=1, dt=torch.float32):
     return y.transpose(1, 2) + b.to(dt)
 
 
-def history_forward(W, x, embed_dim=32, depths=DEPTHS, num_heads=HEADS,
-                    windows=WINDOWS, dtype=None):
+def history_forward(W, x, embed_dim=32, num_heads=HEADS, windows=WINDOWS,
+                    dtype=None):
     """HistoryEncoder forward over the flat param dict `W` (port of
-    rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode): conv
-    tokenizer, banded-attention blocks through ops/attention.py, stride-2
+    rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode, with
+    its stage branch): conv tokenizer; each level's two LocalBlocks as one
+    fused stage through ops/history.py (the CUDA kernel on the card), in
+    f32 whatever `dtype`, as the JAX package's stage branch casts; stride-2
     downsampling, FPN fusion, last-token readout. x [N, T, C] -> [N, 4*32]."""
     dt = dtype or torch.float32
     x = conv3(x, W["conv0_w"], W["conv0_b"], dt=dt)
-    outs, bi = [], 0
-    for lv, depth in enumerate(depths):
-        H = num_heads[lv]
+    outs = []
+    levels = len(DEPTHS)
+    for lv in range(levels):
         n = x.shape[-2]
-        for _ in range(depth):
-            bias = band_rpb_bias(W[f"blk{bi}_rpb"].float(), n, windows[lv])
-            h = ln_f32(x, W[f"blk{bi}_ln1_scale"], W[f"blk{bi}_ln1_bias"], dt)
-            D = h.shape[-1]
-            qkv = h @ W[f"blk{bi}_qkv_w"].to(dt) + W[f"blk{bi}_qkv_b"].to(dt)
-            att = fused_attention(
-                qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
-                bias.contiguous(),
-                torch.zeros(h.shape[:2], dtype=torch.float32, device=h.device),
-                H,
-            )
-            x = x + (att @ W[f"blk{bi}_out_w"].to(dt) + W[f"blk{bi}_out_b"].to(dt))
-            h = ln_f32(x, W[f"blk{bi}_ln2_scale"], W[f"blk{bi}_ln2_bias"], dt)
-            h = h @ W[f"blk{bi}_mlp1_w"].to(dt) + W[f"blk{bi}_mlp1_b"].to(dt)
-            h = F.gelu(h, approximate="tanh")
-            x = x + (h @ W[f"blk{bi}_mlp2_w"].to(dt) + W[f"blk{bi}_mlp2_b"].to(dt))
-            bi += 1
+        blocks = (2 * lv, 2 * lv + 1)
+        sw = [W[f"blk{b}_{nm}"] for b in blocks for nm in STAGE_WNAMES]
+        b0, b1 = (band_rpb_bias(W[f"blk{b}_rpb"].float(), n, windows[lv]) for b in blocks)
+        x = local_stage(x.float().contiguous(), sw, b0, b1, num_heads[lv]).to(dt)
         outs.append(ln_f32(x, W[f"level{lv}_ln_scale"], W[f"level{lv}_ln_bias"], dt))
-        if lv < len(depths) - 1:
+        if lv < levels - 1:
             x = conv3(x, W[f"down{lv}_w"], W[f"down{lv}_b"], stride=2, dt=dt)
             x = ln_f32(x, W[f"down{lv}_ln_scale"], W[f"down{lv}_ln_bias"], dt)
 
     lat = [
         conv3(outs[lv], W[f"lat{lv}_w"], W[f"lat{lv}_b"], dt=dt)
-        for lv in range(len(depths))
+        for lv in range(levels)
     ]
     for i in range(len(lat) - 1, 0, -1):
         R = torch.from_numpy(resize_matrix(lat[i].shape[-2], lat[i - 1].shape[-2]))
@@ -369,13 +364,14 @@ class HistoryEncoder(nn.Module):
     package's flat names (rift_tpu/ops/history.py:weight_order plus
     blk{i}_rpb), registered directly on the module."""
 
-    def __init__(self, in_dim=9, embed_dim=32, depths=DEPTHS, num_heads=HEADS,
-                 windows=WINDOWS, dtype=None):
+    def __init__(self, in_dim=9, embed_dim=32, num_heads=HEADS, windows=WINDOWS,
+                 dtype=None):
         super().__init__()
-        self.embed_dim, self.depths = embed_dim, depths
+        self.embed_dim = embed_dim
         self.num_heads, self.windows, self.dtype = num_heads, windows, dtype
-        dims = block_dims(embed_dim, depths)
-        ends = [dims[sum(depths[: lv + 1]) - 1] for lv in range(len(depths))]
+        dims = block_dims(embed_dim)
+        levels = len(DEPTHS)
+        ends = [dims[sum(DEPTHS[: lv + 1]) - 1] for lv in range(levels)]
         shapes = {"conv0_w": (3, in_dim, embed_dim), "conv0_b": (embed_dim,)}
         for i, d in enumerate(dims):
             shapes.update({
@@ -388,7 +384,7 @@ class HistoryEncoder(nn.Module):
             })
         for lv, d in enumerate(ends):
             shapes[f"level{lv}_ln_scale"] = shapes[f"level{lv}_ln_bias"] = (d,)
-            if lv < len(depths) - 1:
+            if lv < levels - 1:
                 shapes[f"down{lv}_w"] = (3, d, 2 * d)
                 shapes[f"down{lv}_b"] = (2 * d,)
                 shapes[f"down{lv}_ln_scale"] = shapes[f"down{lv}_ln_bias"] = (2 * d,)
@@ -396,11 +392,9 @@ class HistoryEncoder(nn.Module):
             shapes[f"lat{lv}_b"] = (dims[-1],)
         shapes["fpn_w"] = (3, dims[-1], dims[-1])
         shapes["fpn_b"] = (dims[-1],)
-        bi = 0
-        for lv, depth in enumerate(depths):
-            for _ in range(depth):
-                shapes[f"blk{bi}_rpb"] = (num_heads[lv], 2 * windows[lv] - 1)
-                bi += 1
+        for i in range(len(dims)):
+            lv = i // 2
+            shapes[f"blk{i}_rpb"] = (num_heads[lv], 2 * windows[lv] - 1)
         for name, s in shapes.items():
             if name.endswith(("_b", "_bias")) or "rpb" in name:
                 p = torch.zeros(s)
@@ -413,8 +407,7 @@ class HistoryEncoder(nn.Module):
     def forward(self, x):
         W = dict(self.named_parameters())
         return history_forward(
-            W, x, self.embed_dim, self.depths, self.num_heads, self.windows,
-            self.dtype,
+            W, x, self.embed_dim, self.num_heads, self.windows, self.dtype
         )
 
 

@@ -1,12 +1,16 @@
-"""Where the time of one planner act step, or one fine-tune step, goes on
-the card.
+"""Where the time of one planner act step, one fine-tune step or one
+closed-loop tick goes on the card.
 
-    python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit] [--steps 5]
+    python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick] [--steps 5]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
 1..3) and the full-width bf16 PlutoModel, then traces `--steps` calls with
 torch.profiler: pluto_cbv_act in eval or train mode, or (`fit`) the train
 step of a fine-tune round on a batch of 256 of the train act's samples.
+`world` and `tick` reset the scenes and run 30 world-only ticks first (so
+that rule recognition has promoted CBVs), then trace the env step alone
+(the world tick, criteria, churn, recognition on every second call) or an
+eval tick (the act, then the env step).
 Prints one JSON line: host wall time per call, device kernel time per call,
 the device's idle share, the number of kernel launches per call, and the
 kernels that take the most device time. Run from the repository root (it
@@ -25,7 +29,8 @@ import torch
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("eval", "train", "fit"), default="eval")
+    ap.add_argument("--mode", choices=("eval", "train", "fit", "world", "tick"),
+                    default="eval")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()
@@ -37,6 +42,8 @@ def main() -> int:
     from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
     from rift_tpu_torch.rl import TrainConfig, gather_batch, make_optimizer, rift_loss_fn
     from rift_tpu_torch.rl import ring_append, ring_init, train_step
+    from rift_tpu_torch.rollout import rollout_chunk
+    from rift_tpu_torch.scenario import TrafficEnv, env_step
     from torch.profiler import ProfilerActivity, profile
 
     tmap = make_grid_town(blocks=2, num_lanes=2)
@@ -44,10 +51,24 @@ def main() -> int:
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
     tok = canonical_map_tokens(model, tmap)
-    train = args.mode != "eval"
+    train = args.mode in ("train", "fit")
     act = lambda: pluto_cbv_act(
         model, tmap, spec, state, max_cbvs=cs.C, train=train, map_tok=tok
     )
+    if args.mode in ("world", "tick"):
+        env = TrafficEnv(tmap, num_scenarios=cs.S, num_agents=cs.A, max_cbvs=cs.C)
+        state, crit, spec = env.reset()
+        state, crit, _ = rollout_chunk(None, tmap, spec, state, crit, max_cbvs=cs.C,
+                                       num_steps=30, with_policy=False, tick=0)
+        ticks = iter(range(30, 10**6))
+
+        def act():
+            cbv = {}
+            if args.mode == "tick":
+                res = pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, map_tok=tok)
+                cbv = {"cbv_traj": res["traj"], "cbv_traj_mask": res["mask"]}
+            # the same state each call: ticks alternate recognition on and off
+            return env_step(tmap, spec, state, crit, max_cbvs=cs.C, tick=next(ticks), **cbv)
     if args.mode == "fit":
         samples, valid = cs.train_samples(torch, act())
         first = lambda t: {k: first(x) for k, x in t.items()} if isinstance(t, dict) else t[0]

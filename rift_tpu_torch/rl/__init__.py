@@ -12,6 +12,7 @@ from .evaluator import (
     NUM_FRAMES,
     dense_reward,
     derive_kinematics,
+    executed_cbv_reward,
     forecast_neighbors,
     grpo_advantage_batched,
     rollout_candidates,
@@ -31,6 +32,7 @@ __all__ = [
     "NUM_FRAMES",
     "dense_reward",
     "derive_kinematics",
+    "executed_cbv_reward",
     "forecast_neighbors",
     "grpo_advantage_batched",
     "rollout_candidates",

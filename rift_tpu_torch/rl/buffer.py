@@ -12,14 +12,9 @@ from typing import Any
 
 import torch
 
+from ..utils.tensors import tree_map
+
 DEFAULT_CAPACITY = 4096  # reference buffer cap (rift_pluto.yaml)
-
-
-def _map(fn, tree, *rest):
-    """Apply `fn` to the tensor leaves of nested dicts (same structure)."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def _leaves(tree):
@@ -50,7 +45,7 @@ def ring_init(sample_spec: Any, capacity: int = DEFAULT_CAPACITY) -> RingBuffer:
     """`sample_spec`: nested dict of tensors describing ONE sample (their
     shape, dtype and device)."""
     alloc = lambda x: torch.zeros((capacity,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    return RingBuffer(data=_map(alloc, sample_spec))
+    return RingBuffer(data=tree_map(alloc, sample_spec))
 
 
 def ring_append(buf: RingBuffer, samples: Any, valid: torch.Tensor) -> RingBuffer:
@@ -69,7 +64,7 @@ def ring_append(buf: RingBuffer, samples: Any, valid: torch.Tensor) -> RingBuffe
         dst[slots.to(dst.device)] = src[keep.to(src.device)]
         return dst
 
-    _map(put, buf.data, samples)
+    tree_map(put, buf.data, samples)
     buf.size = min(buf.size + added, cap)
     buf.ptr = (buf.ptr + added) % cap
     return buf
@@ -95,4 +90,4 @@ def sample_batches(buf: RingBuffer, gen: torch.Generator, batch_size: int, num_b
 
 
 def gather_batch(buf: RingBuffer, idx: torch.Tensor):
-    return _map(lambda x: x[idx.to(x.device)], buf.data)
+    return tree_map(lambda x: x[idx.to(x.device)], buf.data)

@@ -1,7 +1,7 @@
 """Trajectory evaluator: candidate rollout, dense reward and GRPO advantage
 (port of rift_tpu/rl/evaluator.py: the constants, `dense_reward`,
-`rollout_candidates`, `derive_kinematics`, `forecast_neighbors` and
-`grpo_advantage_batched`).
+`executed_cbv_reward`, `rollout_candidates`, `derive_kinematics`,
+`forecast_neighbors` and `grpo_advantage_batched`).
 
     candidates [B, R, M, T, 6] (local frame)
       -> ref-line distance and angle          (ops/refline.py, kernel 4)
@@ -27,6 +27,7 @@ from ..map.tensor_map import TensorMap
 from ..ops.refline import refline_matrices
 from ..ops.retrack import retrack_rollout
 from ..sim.dynamics import bicycle_forecast_step
+from ..utils.tensors import flush_subnormals as _ftz
 
 GAMMA = 0.98
 NUM_FRAMES = 40  # evaluator horizon (traj_evaluator.py:86 num_frames)
@@ -79,6 +80,27 @@ def dense_reward(delta_dis, delta_angle, speed, acc, angular_vel, angular_acc,
     return r_collision + r_offroad + r_comfort + r_align + r_center + r_velocity + r_time
 
 
+def executed_cbv_reward(tmap: TensorMap, state, slots):
+    """[S, C] dense reward of the executed transition of the CBV slots
+    (the env reward a fine-tune round stores per tick): lane-relative
+    alignment stands in for the reference-line projection; the events come
+    from the world tick. Padded slots (-1) get 0."""
+    scen = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    sl = torch.clamp(slots, min=0)
+    _, lat, lane_hdg = tmap.project(state.lane[scen, sl], state.pos[scen, sl])
+    r = dense_reward(
+        torch.abs(lat),
+        torch.abs(wrap_angle(state.heading[scen, sl] - lane_hdg)),
+        state.speed[scen, sl],
+        state.accel[scen, sl],
+        state.yaw_rate[scen, sl],
+        torch.zeros_like(lat),
+        state.collision[scen, sl].float(),
+        state.offroad[scen, sl].float(),
+    )
+    return torch.where(slots >= 0, r, 0.0)
+
+
 def rollout_candidates(ref_pos, ref_heading, init_speed, dt: float = 0.1,
                        num_frames: int = NUM_FRAMES):
     """Re-track each candidate (ref_pos [G, T, 2] world frame, ref_heading
@@ -121,13 +143,6 @@ def _diff_matrix(T: int):
     for i in range(1, T - 1):
         D[i, i + 1], D[i, i - 1], scale[i] = 1.0, -1.0, 0.5
     return D, scale
-
-
-def _ftz(x):
-    """Subnormal floats to zero, as XLA computes. A rollout braking to a
-    halt decays its speed through the subnormal range; kept, those values
-    would make a stopped candidate "moving" in the dense reward."""
-    return torch.where(torch.abs(x) < torch.finfo(x.dtype).tiny, 0.0, x)
 
 
 def derive_kinematics(heading, speed, dt: float = 0.1):

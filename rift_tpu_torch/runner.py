@@ -1,0 +1,174 @@
+"""Top-level runner: the eval and the rollout/train alternation (port of
+rift_tpu/runner.py, on one device; the scenario-sharded mesh path comes
+with multi-GPU).
+
+A runner owns the map, the env, the Pluto CBV policy, the ring buffer and
+the statistics, and loops episodes. The fine-tune loop fills the buffer
+from real train ticks, then `fit` on it, then empties it: buffer full ->
+rl.trainer.fit -> ring_reset.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from .map.tensor_map import TensorMap
+from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+from .rl import TrainConfig, fit, rift_loss_fn, ring_append, ring_init, ring_reset
+from .rollout import flush_pending, rollout_chunk, tick_extras
+from .scenario import TrafficEnv
+from .scenario.statistics import StatisticsManager
+from .utils.device import resolve_device
+from .utils.tensors import tree_map
+
+
+@dataclass
+class RunnerConfig:
+    num_scenarios: int = 4
+    num_agents: int = 16
+    max_cbvs: int = 3
+    max_episode_ticks: int = 600
+    buffer_capacity: int = 1024
+    train: TrainConfig = field(default_factory=TrainConfig)
+    seed: int = 0
+    encoder_depth: int = 4
+    decoder_depth: int = 4
+
+
+class Runner:
+    SAMPLE_KEYS = (
+        "old_logits", "advantage", "valid", "rollout_return", "chosen_idx",
+        "teacher_speed", "teacher_pos", "value", "reward", "ret",
+        "ret_shaped", "gae", "gae_valid",
+    )
+
+    def __init__(self, tmap: TensorMap, cfg: RunnerConfig | None = None, device=None):
+        self.cfg = cfg or RunnerConfig()
+        self.device = resolve_device(device)
+        self.tmap = tmap
+        self.env = TrafficEnv(
+            tmap, num_scenarios=self.cfg.num_scenarios, num_agents=self.cfg.num_agents,
+            max_cbvs=self.cfg.max_cbvs, seed=self.cfg.seed, device=self.device,
+        )
+        self.model = self._seeded_model()
+        self.buffer = None
+        self.stats = StatisticsManager()
+        self.train_rounds = 0
+        self.gen = torch.Generator(self.device).manual_seed(self.cfg.seed)
+        self._map_tok = None
+
+    def _seeded_model(self) -> PlutoModel:
+        """Fresh planner weights from the config's seed (the global torch
+        generator is left as it was)."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.cfg.seed)
+            return PlutoModel(
+                encoder_depth=self.cfg.encoder_depth, decoder_depth=self.cfg.decoder_depth,
+                device=self.device,
+            ).eval()
+
+    def init_params(self):
+        """Fresh seeded weights and new scenes: (state, crit, spec)."""
+        self.model = self._seeded_model()
+        self._map_tok = None
+        return self.env.reset()
+
+    def _map_tokens(self):
+        """Canonical per-lane map tokens, computed once per weight change:
+        `fit` updates the model in place, so it clears them."""
+        if self._map_tok is None:
+            self._map_tok = canonical_map_tokens(self.model, self.tmap)
+        return self._map_tok
+
+    def run_episode(self, train: bool = False, collect=None, chunk: int = 10):
+        """One batched episode -> (state, crit, spec). Ticks run in chunks
+        of `chunk` (rollout_chunk) unless a per-tick `collect(state, act)`
+        callback needs the intermediate states."""
+        state, crit, spec = self.env.reset()
+        C = self.cfg.max_cbvs
+        if collect is not None:
+            pending = []
+            for _ in range(self.cfg.max_episode_ticks):
+                res = pluto_cbv_act(
+                    self.model, self.tmap, spec, state, max_cbvs=C, train=train,
+                    map_tok=self._map_tokens(),
+                )
+                collect(state, res)
+                state, crit = self.env.step(
+                    state, crit, cbv_traj=res["traj"], cbv_traj_mask=res["mask"]
+                )
+                if train and bool(res["mask"].any()):
+                    pending.append(tick_extras(self.tmap, res, state, crit))
+                    if len(pending) >= 16:
+                        flush_pending(self._store_chunk, pending)
+                if self.env.all_done(crit):
+                    break
+            if train:
+                flush_pending(self._store_chunk, pending)
+        else:
+            for _ in range(max(self.cfg.max_episode_ticks // chunk, 1)):
+                state, crit, extras = rollout_chunk(
+                    self.model, self.tmap, spec, state, crit, max_cbvs=C,
+                    num_steps=chunk, train=train, map_tok=self._map_tokens(),
+                    tick=self.env.advance(chunk),
+                )
+                if extras is not None:
+                    self._store_chunk(extras)
+                if self.env.all_done(crit):
+                    break
+        self.stats.register_episode(crit, state, spec)
+        return state, crit, spec
+
+    def _store_chunk(self, extras):
+        """Append [K, B, ...] chunk samples to the ring buffer."""
+        merge = lambda x: x.reshape((-1,) + x.shape[2:])
+        samples = {"features": tree_map(merge, extras["features"])}
+        samples.update({k: merge(extras[k]) for k in self.SAMPLE_KEYS if k in extras})
+        if self.buffer is None:
+            self.buffer = ring_init(
+                tree_map(lambda x: x[0], samples), capacity=self.cfg.buffer_capacity
+            )
+        ring_append(self.buffer, samples, merge(extras["sample_valid"]))
+
+    def train_cbv(self, num_episodes: int = 10, chunk: int = 10):
+        """Closed-loop RIFT fine-tuning: episodes of train ticks; each time
+        the buffer is full, one `fit` round on it. Returns the rounds'
+        epoch losses."""
+        losses_log = []
+        for _ in range(num_episodes):
+            self.run_episode(train=True, chunk=chunk)
+            if self.buffer is not None and self.buffer.full:
+                losses_log.append(fit(
+                    self.model, self.buffer, rift_loss_fn, self.cfg.train, self.gen,
+                    round_idx=self.train_rounds,
+                ))
+                self._map_tok = None
+                self.train_rounds += 1
+                ring_reset(self.buffer)
+        return losses_log
+
+    def eval(self, num_episodes: int = 3, chunk: int = 10):
+        for _ in range(num_episodes):
+            self.run_episode(train=False, chunk=chunk)
+        return self.stats.compute_global_statistics()
+
+    def collect_data(self, num_episodes: int = 1):
+        """Offline dataset collection: a list of per-tick dicts (numpy) of
+        the agents' states and the CBVs' planned waypoints."""
+        dataset = []
+
+        def collect(state, res):
+            dataset.append({
+                "pos": state.pos.cpu().numpy(),
+                "heading": state.heading.cpu().numpy(),
+                "speed": state.speed.cpu().numpy(),
+                "is_cbv": state.is_cbv.cpu().numpy(),
+                "alive": state.alive.cpu().numpy(),
+                "cbv_traj": res["traj"].cpu().numpy(),
+            })
+
+        for _ in range(num_episodes):
+            self.run_episode(train=False, collect=collect)
+        return dataset

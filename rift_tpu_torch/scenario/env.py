@@ -1,10 +1,12 @@
-"""TrafficEnv: batched scenarios in one state (port of
-rift_tpu/scenario/env.py, the reset half: route sampling, scenario spec,
-spawning and `TrafficEnv.reset`; `env_step` comes with the world tick).
+"""TrafficEnv: batched closed-loop scenarios in one state (port of
+rift_tpu/scenario/env.py).
 
 Reset is host-side numpy, as in the JAX package, and consumes the
 `numpy.random.Generator` in the same order, so both packages spawn the same
 scenes from the same seed. The result moves to the device in one `.to()`.
+`env_step` advances every scenario one tick on the device: lazy BV
+activation, controls, the world tick, criteria, CBV churn and, on its
+cadence, rule recognition.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from ..map.routing import (
     route_waypoints,
     trace_route,
 )
+from ..ego.rule_ego import rule_ego_waypoints
 from ..map.tensor_map import TensorMap
+from ..sim.pid import extend_path
 from ..sim.state import (
     CLASS_STATIC,
     CLASS_WALKER,
@@ -31,8 +35,12 @@ from ..sim.state import (
     SimState,
     init_sim_state_host,
 )
+from ..sim.world import cbv_reached_goal
+from ..sim.world import step as world_step
 from ..utils.device import resolve_device
 from ..utils.tensors import to_numpy
+from .criteria import CriteriaState, init_criteria, update_criteria
+from .recognition import RECOG_INTERVAL, RECOG_WARMUP_TICKS, recognize_cbvs
 
 ROUTE_PAD = 1024  # max route waypoints (1 m spacing -> 1 km routes)
 RIDS_PAD = 64
@@ -309,6 +317,80 @@ def wake_all_bvs(state):
     )
 
 
+def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: CriteriaState,
+             cbv_traj=None, cbv_traj_mask=None, max_cbvs: int = 3, dt: float = 0.1,
+             *, tick: int):
+    """One environment tick for every scenario -> (state, crit).
+
+    The ego is the rule ego; CBVs follow `cbv_traj` [S, A, T, 2] local
+    waypoints where `cbv_traj_mask` [S, A] holds; everyone else runs the
+    IDM autopilot. (The JAX package's learned egos and raw-control agents
+    come with the ego zoo.) `tick` is the state's tick before the step, the
+    same in every scenario (ticks advance in lockstep); the caller keeps it
+    on the host, so the recognition cadence costs no device read."""
+    S, A = state.alive.shape
+    dev = state.pos.device
+
+    # lazy BV activation: pooled vehicles wake within 150 m of the ego
+    d_ego = torch.linalg.norm(state.pos - state.pos[:, :1], dim=-1)
+    wake = state.bv_pool & (d_ego < BV_ACTIVATE_RADIUS)
+    state = state.replace(alive=state.alive | wake, bv_pool=state.bv_pool & ~wake)
+
+    ego_traj = rule_ego_waypoints(spec, state, dt, tmap=tmap)
+    T = ego_traj.shape[-2]
+    traj = torch.zeros((S, A, T, 2), device=dev)
+    traj[:, 0] = ego_traj
+    traj_mask = torch.zeros((S, A), dtype=torch.bool, device=dev)
+    traj_mask[:, 0] = True
+    if cbv_traj is not None:
+        # constant-velocity extension: the tracker averages the segments
+        Tm = max(T, cbv_traj.shape[-2])
+        traj = torch.where(
+            cbv_traj_mask[..., None, None], extend_path(cbv_traj, Tm), extend_path(traj, Tm)
+        )
+        traj_mask = traj_mask | cbv_traj_mask
+
+    # finished scenarios are frozen: everyone brakes (raw control)
+    ctrl = torch.zeros((S, A, 3), device=dev)
+    ctrl[..., 2] = 1.0
+    ctrl_mask = crit.done[:, None].expand(S, A)
+
+    state = world_step(
+        tmap, spec, state, traj=traj, traj_mask=traj_mask & ~ctrl_mask,
+        ctrl=ctrl, ctrl_mask=ctrl_mask, dt=dt,
+    )
+    crit = update_criteria(crit, state, spec, dt, tmap=tmap)
+
+    # CBV churn: reach goal -> plain BV again; collision -> destroyed. Plain
+    # BVs that collide are removed too (the kinematic tick has no contact
+    # resolution); the ego persists
+    reached = cbv_reached_goal(state)
+    cbv_collided = state.collision & state.is_cbv
+    bv_collided = state.collision & ~state.is_cbv
+    bv_collided[:, 0] = False
+    state = state.replace(
+        is_cbv=state.is_cbv & ~reached & ~cbv_collided,
+        goal_valid=state.goal_valid & ~reached & ~cbv_collided,
+        alive=state.alive & ~cbv_collided & ~bv_collided,
+    )
+
+    # recognition on its cadence (after the warm-up, every RECOG_INTERVAL
+    # ticks), skipped whole on the other ticks
+    new_tick = tick + 1
+    if new_tick > RECOG_WARMUP_TICKS and new_tick % RECOG_INTERVAL == 0:
+        new_is_cbv, goal, gvalid, _, promote = recognize_cbvs(tmap, spec, state, max_cbvs)
+        gate = ~crit.done[:, None]
+        promote = promote & gate
+        state = state.replace(
+            is_cbv=torch.where(gate, new_is_cbv, state.is_cbv),
+            goal=torch.where(promote[..., None], goal, state.goal),
+            goal_valid=torch.where(promote, gvalid, state.goal_valid),
+            # fresh controllers for promoted CBVs
+            tracker=state.tracker.reset_where(promote),
+        )
+    return state, crit
+
+
 class TrafficEnv:
     """Host-side wrapper: reset and episode bookkeeping. The scenes live on
     the map's device, which must be `device` (CUDA unless the caller names
@@ -339,11 +421,10 @@ class TrafficEnv:
         self.num_walkers = num_walkers
         self.num_statics = num_statics
         self.rng = np.random.default_rng(seed)
+        self.tick = 0  # the scenes' tick, kept on the host (lockstep)
 
     def reset(self, routes=None, lane_paths=None):
-        """New scenes: returns (state, spec) on the env's device. (The JAX
-        package also returns the criteria state, which comes with the
-        world tick.)"""
+        """New scenes: returns (state, crit, spec) on the env's device."""
         if routes is None:
             routes, lane_paths = [], []
             for _ in range(self.num_scenarios):
@@ -357,4 +438,24 @@ class TrafficEnv:
             self.tmap, self.spec, self.num_agents, self.rng,
             num_walkers=self.num_walkers, num_statics=self.num_statics,
         )
-        return state.to(self.device), self.spec
+        self.tick = 0
+        crit = init_criteria(self.num_scenarios, self.num_agents, self.device)
+        return state.to(self.device), crit, self.spec
+
+    def advance(self, ticks: int) -> int:
+        """Move the host tick on by `ticks` steps of the scenes; returns the
+        tick they start from (the `tick` of env_step and rollout_chunk)."""
+        start = self.tick
+        self.tick += ticks
+        return start
+
+    def step(self, state, crit, cbv_traj=None, cbv_traj_mask=None):
+        """One tick of the scenes of the last reset -> (state, crit)."""
+        return env_step(
+            self.tmap, self.spec, state, crit, cbv_traj=cbv_traj,
+            cbv_traj_mask=cbv_traj_mask, max_cbvs=self.max_cbvs, dt=self.dt,
+            tick=self.advance(1),
+        )
+
+    def all_done(self, crit) -> bool:
+        return bool(crit.done.all())

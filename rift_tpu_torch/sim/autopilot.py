@@ -1,14 +1,15 @@
-"""Background-traffic autopilot helpers (port of rift_tpu/sim/autopilot.py:
-the IDM constants, `find_leaders`, `chain_lanes_free`, `junction_yield`,
-`yield_target_speed` and `lane_follow_waypoints`; the IDM integration and
-route following come with the world tick).
+"""Background-traffic autopilot: IDM speed + lane-follow steering (port of
+rift_tpu/sim/autopilot.py).
 
 Vectorized over [S, A]: each vehicle chains lane successors (fork choices
-from its branch bits), finds its leader in a lane-width corridor, yields at
-junction entries, and places waypoints along its lane chain.
+from its branch bits), finds its leader in a lane-width corridor, integrates
+IDM toward its target speed, yields at junction entries, and places
+waypoints along its lane chain (or, for the rule ego, along its route).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -60,6 +61,21 @@ def find_leaders(pos, heading, speed, shape, alive, max_range: float = 50.0,
         torch.where(has, torch.clamp(gap, min=0.1), torch.inf),
         torch.where(has, leader_speed, 0.0),
     )
+
+
+def idm_target_speed(speed, v0, leader, dt: float, horizon_steps: float = 10.0):
+    """IDM acceleration integrated over a short horizon -> target speed.
+    `leader` is find_leaders' (gap, leader speed)."""
+    gap, leader_speed = leader
+    v0 = torch.clamp(v0, min=0.1)
+    s_star = IDM_MIN_GAP + speed * IDM_HEADWAY + speed * (speed - leader_speed) / (
+        2.0 * math.sqrt(IDM_MAX_ACCEL * IDM_BRAKE)
+    )
+    s_star = torch.clamp(s_star, min=0.0)
+    interaction = torch.where(torch.isfinite(gap), (s_star / gap) ** 2, 0.0)
+    accel = IDM_MAX_ACCEL * (1.0 - (speed / v0) ** IDM_EXPONENT - interaction)
+    accel = torch.clamp(accel, -2 * IDM_BRAKE, IDM_MAX_ACCEL)
+    return torch.clamp(speed + accel * dt * horizon_steps, min=0.0).minimum(v0 * 1.05)
 
 
 def chain_lanes_free(tmap: TensorMap, lane, branch_bits, n_lanes: int = CHAIN_LANES):
@@ -161,6 +177,35 @@ def lane_follow_waypoints(tmap: TensorMap, lane, pos, heading, branch_bits, spac
     p0 = tmap.centerline[lane_j, i0]
     p1 = tmap.centerline[lane_j, i0 + 1]
     world_wp = p0 * (1.0 - w) + p1 * w
+    rel = world_wp - pos[..., None, :]
+    c = torch.cos(heading)[..., None]
+    sn = torch.sin(heading)[..., None]
+    return torch.stack(
+        [rel[..., 0] * c + rel[..., 1] * sn, -rel[..., 0] * sn + rel[..., 1] * c], dim=-1
+    )
+
+
+def path_follow_waypoints(path, path_len, pos, heading, spacing,
+                          num_points: int = LOOKAHEAD_WAYPOINTS):
+    """Local waypoints along a dense (1 m) route polyline path [..., N, 3]
+    with `path_len` [...] valid points -> [..., num_points, 2]: the rule
+    ego's route following. At 1 m spacing arclength is the index, so the
+    targets are fractional indices from the nearest route point on."""
+    n = path.shape[-2]
+    valid = torch.arange(n, device=path.device) < path_len[..., None]
+    pts = path[..., :2]
+    d2 = ((pts - pos[..., None, :]) ** 2).sum(-1)
+    d2 = torch.where(valid, d2, torch.inf)
+    i0 = torch.argmin(d2, dim=-1).float()  # first among equal distances
+    last = torch.clamp(path_len - 1, min=0).float()
+    steps = 1.0 + torch.arange(num_points, dtype=torch.float32, device=path.device)
+    idx_f = torch.minimum(
+        torch.clamp(i0[..., None] + steps * spacing[..., None], min=0.0), last[..., None]
+    )
+    j0 = torch.clamp(idx_f.to(torch.int32), 0, n - 2).long()
+    w = (idx_f - j0)[..., None]
+    take = lambda j: torch.gather(pts, -2, j[..., None].expand(j.shape + (2,)))
+    world_wp = take(j0) * (1.0 - w) + take(j0 + 1) * w
     rel = world_wp - pos[..., None, :]
     c = torch.cos(heading)[..., None]
     sn = torch.sin(heading)[..., None]

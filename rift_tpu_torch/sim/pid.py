@@ -1,5 +1,5 @@
 """Stateless batched PID + trajectory-tracking controller (port of
-rift_tpu/sim/pid.py: the state containers, `pid_step` and `track_step`).
+rift_tpu/sim/pid.py).
 
 Controller semantics of the reference tracker (pid_controller.py:14-100):
 waypoints resampled every `sample_interval` steps, desired speed = mean
@@ -48,6 +48,14 @@ class PIDState(TensorDataclass):
             count=torch.zeros(batch_shape, dtype=torch.long, device=device),
         )
 
+    def reset_where(self, mask) -> "PIDState":
+        """Zero the controllers where `mask` holds (fresh CBVs)."""
+        return PIDState(
+            buf=torch.where(mask[..., None], 0.0, self.buf),
+            ptr=torch.where(mask, 0, self.ptr),
+            count=torch.where(mask, 0, self.count),
+        )
+
 
 @dataclass
 class TrackerState(TensorDataclass):
@@ -61,6 +69,9 @@ class TrackerState(TensorDataclass):
         return cls(
             PIDState.zeros(batch_shape, device), PIDState.zeros(batch_shape, device)
         )
+
+    def reset_where(self, mask) -> "TrackerState":
+        return TrackerState(self.speed.reset_where(mask), self.turn.reset_where(mask))
 
 
 def pid_step(state: PIDState, error, kp: float, ki: float, kd: float):
@@ -78,6 +89,37 @@ def pid_step(state: PIDState, error, kp: float, ki: float, kd: float):
         ptr=(idx + 1) % PID_WINDOW,
         count=torch.clamp(state.count + 1, max=PID_WINDOW),
     )
+
+
+def densify_local_waypoints(wp, wp_dt: float = 0.5, dt: float = 0.1,
+                            num_points: int = 30):
+    """Sparse planner waypoints [..., K, 2] (the first at t = wp_dt) -> the
+    tracker's dt-per-point trajectory [..., num_points, 2]: linear between
+    knots, constant-velocity extrapolation past the last one (the tracker
+    reads desired speed from the spacing, so padding with the last point
+    would read as "stop")."""
+    K = wp.shape[-2]
+    knots = torch.cat([torch.zeros_like(wp[..., :1, :]), wp], dim=-2)
+    t = (torch.arange(num_points, dtype=torch.float32, device=wp.device) + 1.0) * dt / wp_dt
+    idx = torch.clamp(torch.floor(t).long(), 0, K - 1)
+    frac = (t - idx)[:, None]  # > 1 past the last knot: extrapolation
+    p0, p1 = knots[..., idx, :], knots[..., idx + 1, :]
+    return p0 + frac * (p1 - p0)
+
+
+def extend_path(wp, n: int):
+    """Pad [..., T, 2] waypoints to n points by extrapolating the last
+    segment (constant velocity): the tracker's desired speed averages the
+    segments of the whole window, which repetition would deflate; a
+    stationary tail extrapolates to more stationary points."""
+    T = wp.shape[-2]
+    if T >= n:
+        return wp[..., :n, :]
+    if T < 2:
+        return torch.cat([wp] + [wp[..., -1:, :]] * (n - T), dim=-2)
+    delta = wp[..., -1:, :] - wp[..., -2:-1, :]
+    k = torch.arange(1, n - T + 1, dtype=wp.dtype, device=wp.device)[:, None]
+    return torch.cat([wp, wp[..., -1:, :] + delta * k], dim=-2)
 
 
 def track_step(state: TrackerState, local_waypoints, speed, sample_interval: int = 10):

@@ -1,5 +1,5 @@
-"""Stop-sign zones (port of rift_tpu/sim/stop_signs.py: `stop_zone_info`,
-`stop_target_speed`).
+"""Stop-sign zones and stop-once-then-proceed behaviour (port of
+rift_tpu/sim/stop_signs.py).
 
 `TensorMap.stop_lane` marks lanes whose end is a stop line. An agent is
 "approaching" within STOP_BRAKE_DISTANCE of the line and "in the zone"
@@ -33,3 +33,13 @@ def stop_target_speed(tmap: TensorMap, lane, pos, stopped_latch, v_target):
     need = ~stopped_latch
     v = torch.where(approaching & need, torch.clamp(v_target, max=CRAWL_SPEED), v_target)
     return torch.where(in_zone & need, 0.0, v)
+
+
+def update_stop_memory(in_zone_prev, stopped_prev, in_zone_now, speed_now):
+    """New (in_stop_zone, stopped_at_stop) [S, A]: the halt latch resets on
+    zone entry and persists after exit, where the criterion reads it.
+    `speed_now` is the world tick's new speed, whose subnormals the tick
+    has already flushed to zero."""
+    enter = in_zone_now & ~in_zone_prev
+    stopped = (stopped_prev & ~enter) | (in_zone_now & (speed_now < SPEED_STOPPED))
+    return in_zone_now, stopped

@@ -1,5 +1,4 @@
-"""Traffic-light state machine (port of rift_tpu/sim/traffic_lights.py:
-`group_state`, `lane_light_state`, `red_ahead`).
+"""Traffic-light state machine (port of rift_tpu/sim/traffic_lights.py).
 
 Each junction approach (TensorMap.light_group) alternates green / yellow /
 red with the opposing axis; the phase is a pure function of the tick.
@@ -52,3 +51,11 @@ def red_ahead(tmap: TensorMap, lane, pos, tick):
     dist = torch.linalg.norm(tmap.centerline[lane, -1] - pos, dim=-1)
     on_connector = tmap.light_group[lane] >= 0
     return all_blocked & (dist < STOP_DISTANCE) & ~on_connector, dist
+
+
+def ego_red_light_entry(tmap: TensorMap, prev_lane, new_lane, tick):
+    """[S] bool: the ego (lanes [S] before and after the step) just entered
+    a signalised connector on red (the RunningRedLightTest event)."""
+    group = tmap.light_group[new_lane]
+    entered = (new_lane != prev_lane) & (group >= 0)
+    return entered & (group_state(group, tick) == RED)

@@ -23,6 +23,20 @@ def as_tensor(x, device) -> torch.Tensor:
     return t.to(device)
 
 
+def tree_map(fn, tree, *rest):
+    """Apply `fn` to the tensor leaves of nested dicts (same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal floats to zero, as XLA computes them. Braking speeds decay
+    through the subnormal range; kept, they read as "moving" (> 0) and
+    fall into other histogram bins than the JAX package's zeros."""
+    return torch.where(torch.abs(x) < torch.finfo(x.dtype).tiny, 0.0, x)
+
+
 def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

@@ -47,14 +47,14 @@ from rift_tpu.scenario import wake_all_bvs as jax_wake
 from rift_tpu.sim.autopilot import lane_follow_waypoints as jax_lane_follow
 from rift_tpu.sim.world import autopilot_steady_speed as jax_steady_speed
 from rift_tpu_torch.geometry.obb import _axes_from_heading, box_corners, obb_overlap
-from rift_tpu_torch.map import make_grid_town, make_straight_town
+from rift_tpu_torch.map import make_straight_town
 from rift_tpu_torch.ops.refline import refline_matrices_ref
 from rift_tpu_torch.rl import evaluator as tev
 from rift_tpu_torch.sim.autopilot import lane_follow_waypoints
 from rift_tpu_torch.sim.dynamics import bicycle_step
 from rift_tpu_torch.sim.pid import TrackerState, track_step
 from rift_tpu_torch.sim.world import autopilot_steady_speed
-from torch_parity import state_from_jax
+from torch_parity import map_from_jax, one_torch_thread, state_from_jax
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "golden_traces.npz")
 MANEUVERS = ["accel_cruise", "brake_stop", "lane_change", "turn"]
@@ -83,7 +83,7 @@ def town():
     )
     return dict(
         jmap=jmap, jstate=jstate,
-        tmap=make_grid_town(blocks=1, num_lanes=2, device="cpu"),
+        tmap=map_from_jax(jmap),  # equal to the port's grid town, bit for bit (test_torch_map)
         state=state_from_jax(jstate),
     )
 

@@ -15,7 +15,9 @@ away from near-ties (the two sum the PID windows and the speed
 polynomials in another order, so a threshold met on one side only sends
 a candidate along another path: see test_retrack_kernel_matches_plain);
 refline 1e-5 with the nearest indices equal (candidate
-points sit off the line's midpoints, so no two line points tie). The
+points sit off the line's midpoints, so no two line points tie); the
+HistoryEncoder stage 1e-4 at the main path's N = 1536 rows (two f32
+LocalBlocks, products up to 384 deep summed in another order). The
 gradients through the kernels' autograd Functions equal the plain
 versions' gradients (both backwards recompute through the plain version;
 the forward outputs feed nothing else).
@@ -25,13 +27,15 @@ import numpy as np
 import pytest
 import torch
 
+from rift_tpu_torch.models.pluto.layers import band_rpb_bias
 from rift_tpu_torch.ops.attention import fused_attention, fused_attention_ref
+from rift_tpu_torch.ops.history import local_stage, local_stage_ref
 from rift_tpu_torch.ops.points import points_encoder, points_forward_ref
 from rift_tpu_torch.ops.refline import refline_matrices, refline_matrices_ref
 from rift_tpu_torch.geometry.se2 import rotate
 from rift_tpu_torch.ops.retrack import FUTURE_LEN, retrack_rollout, retrack_rollout_ref
 from rift_tpu_torch.sim import dynamics, pid
-from torch_parity import ATTN_CASES, attn_inputs, points_weights
+from torch_parity import ATTN_CASES, STAGE_LEVELS, attn_inputs, points_weights, stage_inputs
 
 
 @pytest.fixture
@@ -259,3 +263,38 @@ def test_points_function_gradient_matches_plain(cuda_device):
         grads.append([t.grad for t in xs])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _stage_tensors(device, level, N, seed=0):
+    T, D, H, window = STAGE_LEVELS[level]
+    x, ws, rpb = stage_inputs(seed, N, T, D, H, window)
+    to = lambda a: torch.from_numpy(a).to(device)
+    biases = [band_rpb_bias(to(p), T, window) for p in rpb]
+    return to(x), [to(w) for w in ws], biases, H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", sorted(STAGE_LEVELS))
+def test_history_stage_kernel_matches_plain(cuda_device, level):
+    """The stage kernel at the main path's shape: S*A = 1536 rows, plus a
+    ragged last block (1537 rows)."""
+    for N in (1536, 1537):
+        x, ws, biases, H = _stage_tensors(cuda_device, level, N)
+        got = local_stage(x, ws, *biases, H)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, local_stage_ref(x, ws, *biases, H), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_history_stage_function_gradient_matches_plain(cuda_device):
+    x, ws, biases, H = _stage_tensors(cuda_device, "level2", 64, seed=3)
+    g = torch.randn(x.shape, device=cuda_device)
+    grads = []
+    for fn in (local_stage, local_stage_ref):
+        xs = [t.clone().requires_grad_(True) for t in (x, *biases, *ws)]
+        out = fn(xs[0], xs[3:], xs[1], xs[2], H)
+        assert out.grad_fn is not None
+        (out * g).sum().backward()
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

@@ -19,7 +19,7 @@ from rift_tpu_torch.map import make_grid_town, reference_lines_from_chains
 from rift_tpu_torch.map.tensor_map import TensorMap
 from rift_tpu_torch.scenario import TrafficEnv
 from rift_tpu_torch.sim.state import ScenarioSpec, SimState
-from torch_parity import assert_same
+from torch_parity import assert_fields_match, assert_same, one_torch_thread
 
 S, A, C = 2, 6, 2
 
@@ -34,13 +34,13 @@ def maps():
 @pytest.fixture(scope="module")
 def scenes(maps):
     jmap, tmap = maps
-    jstate, _, jspec = JaxTrafficEnv(
+    jstate, jcrit, jspec = JaxTrafficEnv(
         jmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=3
     ).reset()
-    state, spec = TrafficEnv(
+    state, crit, spec = TrafficEnv(
         tmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=3, device="cpu"
     ).reset()
-    return jstate, jspec, state, spec
+    return jstate, jcrit, jspec, state, crit, spec
 
 
 def test_tensor_map_matches(maps):
@@ -50,7 +50,7 @@ def test_tensor_map_matches(maps):
 
 
 def test_reset_spec_matches(scenes):
-    jstate, jspec, state, spec = scenes
+    jstate, _, jspec, state, _, spec = scenes
     for f in dataclasses.fields(ScenarioSpec):
         a, b = getattr(jspec, f.name), getattr(spec, f.name)
         assert (a is None) == (b is None), f.name
@@ -59,7 +59,9 @@ def test_reset_spec_matches(scenes):
 
 
 def test_reset_state_matches(scenes):
-    jstate, jspec, state, spec = scenes
+    """The spawned state, and the fresh criteria state reset returns."""
+    jstate, jcrit, _, state, crit, _ = scenes
+    assert_fields_match(jcrit, crit, atol=0.0)
     for f in dataclasses.fields(SimState):
         if f.name == "tracker":
             continue
@@ -99,7 +101,7 @@ def test_nearest_lane_matches(maps):
 
 def test_reference_lines_match(maps, scenes):
     jmap, tmap = maps
-    jstate, jspec, state, spec = scenes
+    jstate, _, jspec, state, _, spec = scenes
     alive = np.argwhere(np.asarray(jstate.alive))
     scen = torch.from_numpy(alive[:, 0])
     slot = torch.from_numpy(alive[:, 1])

@@ -19,7 +19,7 @@ from rift_tpu.ops.attention import fused_attention_pallas, fused_attention_xla
 from rift_tpu.ops.points import points_encoder_pallas, points_forward_xla
 from rift_tpu_torch.ops.attention import fused_attention, fused_attention_ref
 from rift_tpu_torch.ops.points import points_encoder, points_forward_ref
-from torch_parity import ATTN_CASES, attn_inputs, points_weights
+from torch_parity import ATTN_CASES, attn_inputs, one_torch_thread, points_weights
 
 
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))

@@ -28,7 +28,6 @@ from rift_tpu.scenario import TrafficEnv as JaxTrafficEnv
 from rift_tpu.scenario import cbv_slot_assignment as jax_slots
 from rift_tpu.scenario import wake_all_bvs as jax_wake
 from rift_tpu.utils.params_io import save_params_npz
-from rift_tpu_torch.map import make_grid_town
 from rift_tpu_torch.models.pluto import (
     PlutoModel,
     build_cbv_features,
@@ -41,7 +40,7 @@ from rift_tpu_torch.utils.params_io import (
     load_jax_params,
     load_params_npz,
 )
-from torch_parity import spec_from_jax, state_from_jax
+from torch_parity import map_from_jax, one_torch_thread, spec_from_jax, state_from_jax
 
 S, A, C = 2, 6, 2
 DEPTH = 1
@@ -111,7 +110,7 @@ def world(tmp_path_factory):
         encoder_depth=DEPTH, decoder_depth=DEPTH, dtype=torch.float32, device="cpu"
     )
     load_jax_params(model, flat)
-    tmap = make_grid_town(blocks=1, num_lanes=2, device="cpu")
+    tmap = map_from_jax(jmap)  # equal to the port's grid town, bit for bit (test_torch_map)
     return dict(
         jmap=jmap, jstate=jstate, jspec=jspec, jmodel=jmodel, params=params,
         batch=batch, feats=feats, flat=flat, model=model, tmap=tmap,

@@ -44,7 +44,6 @@ from rift_tpu.scenario import TrafficEnv as JaxTrafficEnv
 from rift_tpu.scenario import cbv_slot_assignment as jax_slots
 from rift_tpu.scenario import wake_all_bvs as jax_wake
 from rift_tpu.utils.params_io import save_params_npz
-from rift_tpu_torch.map import make_grid_town
 from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
 from rift_tpu_torch.ops.attention import fused_attention
 from rift_tpu_torch.ops.points import points_encoder
@@ -64,7 +63,14 @@ from rift_tpu_torch.rl import (
 from rift_tpu_torch.rl.trainer import lr_schedule
 from rift_tpu_torch.utils.params_io import flatten_params, load_jax_params, load_params_npz
 from test_torch_pluto import _seeded_params, _to_torch
-from torch_parity import attn_inputs, points_weights, spec_from_jax, state_from_jax
+from torch_parity import (
+    attn_inputs,
+    map_from_jax,
+    one_torch_thread,
+    points_weights,
+    spec_from_jax,
+    state_from_jax,
+)
 
 S, A, C = 2, 6, 2
 DEPTH = 1
@@ -95,11 +101,14 @@ def world(tmp_path_factory):
         goal_valid=jstate.goal_valid.at[:, 1:3].set(jstate.alive[:, 1:3]),
     )
     jmodel = JaxPluto(encoder_depth=DEPTH, decoder_depth=DEPTH, dtype=jnp.float32)
-    feats, _, shared = jax_build_features(
-        jmap, jstate, jax_slots(jstate.is_cbv, C), jspec, canonical=True
-    )
-    batch = _flat(feats)
-    batch["shared"] = {**shared, "scen_idx": jnp.repeat(jnp.arange(S), C)}
+
+    def batch(*args):  # the param tree's shapes need no feature to run
+        feats, _, shared = jax_build_features(*args, canonical=True)
+        flat = _flat(feats)
+        flat["shared"] = {**shared, "scen_idx": jnp.repeat(jnp.arange(S), C)}
+        return flat
+
+    batch = jax.eval_shape(batch, jmap, jstate, jax_slots(jstate.is_cbv, C), jspec)
     params = _seeded_params(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), batch))
     path = str(tmp_path_factory.mktemp("params") / "pluto.npz")
     save_params_npz(params, path)
@@ -108,7 +117,7 @@ def world(tmp_path_factory):
         encoder_depth=DEPTH, decoder_depth=DEPTH, dtype=torch.float32, device="cpu"
     )
     load_jax_params(model, flat)
-    tmap = make_grid_town(blocks=1, num_lanes=2, device="cpu")
+    tmap = map_from_jax(jmap)  # equal to the port's grid town, bit for bit (test_torch_map)
     state, spec = state_from_jax(jstate), spec_from_jax(jspec)
 
     ref = jax_act(

@@ -1,13 +1,30 @@
 """Shared helpers of the rift_tpu_torch tests: JAX pytrees become the
-port's tensor dataclasses through numpy, and numpy-seeded kernel inputs.
-Imports neither jax nor rift_tpu, so the card-only tests can use it."""
+port's tensor dataclasses through numpy, numpy-seeded kernel inputs, and
+the one-thread fixture of the CPU tests. Imports neither jax nor rift_tpu,
+so the card-only tests can use it."""
 
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
+from rift_tpu_torch.map.tensor_map import TensorMap
+from rift_tpu_torch.scenario.criteria import CriteriaState
 from rift_tpu_torch.sim.pid import PIDState, TrackerState
 from rift_tpu_torch.sim.state import ScenarioSpec, SimState
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for a CPU test module (imported by name into
+    it): the port's CPU paths are thousands of tiny ops, and torch's thread
+    pool, spinning against the other test processes' threads on a loaded
+    host, slows them by 20-40x. Restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _np_fields(cls, obj, skip=()):
@@ -16,6 +33,16 @@ def _np_fields(cls, obj, skip=()):
         for f in dataclasses.fields(cls)
         if f.name not in skip
     }
+
+
+def map_from_jax(jmap, device="cpu") -> TensorMap:
+    """The port's TensorMap holding a JAX TensorMap's arrays (the two
+    grid towns agree bit for bit: tests/test_torch_map.py)."""
+    return TensorMap(**_np_fields(TensorMap, jmap)).to(device)
+
+
+def crit_from_jax(jcrit, device="cpu") -> CriteriaState:
+    return CriteriaState(**_np_fields(CriteriaState, jcrit)).to(device)
 
 
 def state_from_jax(js, device="cpu") -> SimState:
@@ -28,6 +55,25 @@ def state_from_jax(js, device="cpu") -> SimState:
 
 def spec_from_jax(jspec, device="cpu") -> ScenarioSpec:
     return ScenarioSpec(**_np_fields(ScenarioSpec, jspec)).to(device)
+
+
+def assert_fields_match(jobj, tobj, atol, rtol=0.0, prefix=""):
+    """Every field of a port container (SimState, CriteriaState, nested
+    trackers) against the JAX one: integer and bool fields exactly (uint32
+    and int32 values as the port's int64), float fields within atol/rtol
+    with NaN where the JAX value is NaN."""
+    for f in dataclasses.fields(tobj):
+        a, b = getattr(jobj, f.name), getattr(tobj, f.name)
+        name = prefix + f.name
+        if dataclasses.is_dataclass(b):
+            assert_fields_match(a, b, atol, rtol, name + ".")
+            continue
+        a, b = np.asarray(a), b.detach().cpu().numpy()
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, atol=atol, rtol=rtol, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a.astype(b.dtype), err_msg=name)
 
 
 def assert_same(a, b, name=""):
@@ -66,3 +112,28 @@ def points_weights(seed, C, out_dim):
         mk(512, 256), mk(256), np.abs(mk(256)) + 0.5, mk(256),
         mk(256, out_dim), mk(out_dim),
     )
+
+
+# the HistoryEncoder's three levels on the main path: (T, D, H, window)
+STAGE_LEVELS = {"level0": (20, 32, 2, 3), "level1": (10, 64, 4, 3), "level2": (5, 128, 8, 5)}
+
+
+def stage_inputs(seed, N, T, D, H, window):
+    """One stage's operands from a numpy seed: x [N, T, D], the 24 block
+    weights (LN scales near 1, fan-in scaled matrices) and the two blocks'
+    RPB tables [H, 2w-1] (numpy f32)."""
+    from rift_tpu_torch.ops.history import STAGE_WNAMES, weight_shapes
+
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(N, T, D)).astype(np.float32)
+    ws = []
+    for name, s in zip(STAGE_WNAMES * 2, weight_shapes(D) * 2):
+        if name.endswith("scale"):
+            a = 1.0 + 0.1 * r.normal(size=s)
+        elif len(s) == 1:
+            a = 0.1 * r.normal(size=s)
+        else:
+            a = r.normal(size=s) / np.sqrt(s[0])
+        ws.append(a.astype(np.float32))
+    rpb = [(0.5 * r.normal(size=(H, 2 * window - 1))).astype(np.float32) for _ in range(2)]
+    return x, ws, rpb
