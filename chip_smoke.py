@@ -2,45 +2,51 @@
 """Smoke run of rift_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, drives the Pluto CBV
 planner's eval step, its train step (the GRPO evaluator) and a fine-tune
-round at full width, then the closed loop: Runner.eval and
-Runner.train_cbv at the bench configuration.
+round at full width, then the closed loop (Runner.eval and
+Runner.train_cbv at the bench configuration), the fine-tuning zoo and the
+CLI.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-  1. build the five kernels from rift_tpu_torch/csrc (one nvcc each,
+  1. build the six kernels from rift_tpu_torch/csrc (one nvcc each,
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain version at the main path's shapes:
      attention in f32 (atol 1e-5) and bf16 (atol 2e-2), the PointNet in
      f32 (atol 1e-4), the retrack rollout (at most 1% of the 9216
      candidates diverging by more than 2e-3), the refline matrices (at
-     most 1% of the nearest points flipped, 1e-4 elsewhere) and the
-     HistoryEncoder stage at its three levels in f32 (atol 1e-4); time
-     kernel, plain version and, where one PyTorch call computes the same
-     function, that call (scaled_dot_product_attention, nn.Transformer-
-     Encoder; timed only, the port never calls them); then the gradients
-     through the attention, PointNet and stage autograd Functions against
-     the plain versions' gradients (f32, atol 1e-4);
+     most 1% of the nearest points flipped, 1e-4 elsewhere), the
+     HistoryEncoder stage at its three levels in f32 (atol 1e-4) and the
+     whole-encoder kernel at N = 1536 and at a ragged N = 1537 history rows
+     in f32 (atol 1e-4); time kernel, plain version and, where one PyTorch
+     call computes the same function, that call (scaled_dot_product_
+     attention, nn.TransformerEncoder; timed only, the port never calls
+     them); then the gradients through the attention, PointNet and stage
+     autograd Functions against the plain versions' gradients (f32, atol
+     1e-4);
   3. build the grid town (blocks=2, 2 lanes per direction) and reset
      TrafficEnv at S=64 scenarios x A=24 agents x C=3 CBVs for three seeds,
      with CBVs forced on slots 1..3 and a constant-speed history;
   4. a full-width PlutoModel (encoder and decoder depth 4, bf16 compute)
      from seeded weights: canonical map tokens once, then the eval
      pluto_cbv_act on each scene, with the launch counters read around
-     that run (17 attention and 3 stage launches per call);
+     that run: per call 17 attention launches, 1 whole-encoder launch,
+     1 PointNet launch (plus 1 for the map tokens), no stage launch;
   5. one scene again in f32, through the kernels and through the plain
      versions on the card: the waypoints must agree within 1e-3 where the
      CBV mask holds;
-  6. the train-mode pluto_cbv_act on each scene (one retrack and one
-     refline launch per call besides the planner's), with the counters
-     read around that run; advantages and returns finite and varying;
+  6. the train-mode pluto_cbv_act on each scene (also one retrack and one
+     refline launch per call), with the counters read around that run;
+     advantages and returns finite and varying;
   7. one scene's train act in f32 through the kernels and through the
      plain versions: adv_valid identical, at most 2% of candidate returns
      off by more than 1e-2;
   8. the three scenes' samples (576) appended to a ring buffer of 512,
      then two fine-tune rounds of `fit` (2 epochs, 1 warmup, batch 256: 4
-     steps each), counters read around each: finite losses, pi_head moved,
-     every other parameter bit-identical;
+     steps each), counters read around each (per step 17 attention, 1
+     whole-encoder and 2 PointNet launches: the frozen encoder takes the
+     forward-only kernel): finite losses, pi_head moved, every other
+     parameter bit-identical;
   9. the closed loop at the bench configuration (S=64, A=24, C=3, depth 4,
      bf16, chunks of K=40 ticks; CBVs from rule recognition after tick
      25), counters read around each run: Runner.eval over two chunks;
@@ -49,8 +55,22 @@ Phases (any failure raises and exits non-zero):
      moved and nothing else; world-only, eval and train env-steps/s timed
      as bench.py times them (K=40 chunks from the same reset, after a
      warm-up chunk, best of two); and one K=40 f32 eval chunk through the
-     kernels and through the plain versions, at most 2% of the agents
-     ending more than 1e-2 m apart.
+     kernels and through the plain versions, a tick at a time: of the
+     agents that were CBVs at some tick in either run at most 5%, and of
+     all agents at most 1%, may end more than 1 cm apart or with another
+     CBV flag;
+ 10. the fine-tuning zoo and the CLI: two train ticks at full width fill a
+     256-sample buffer of every fine-tune key (rift, grpo, reinforce, rs,
+     sft, bc, rtr, ppo), then one fit step each, counters read around
+     each: finite losses, and only the key's trainable set moved (pi_head;
+     pi_head and value_head for ppo_pluto; for bc_pluto every layer, the
+     HistoryEncoder through the stage kernel: per step 17 attention, 3
+     stage and 2 PointNet launches, no whole-encoder launch; grpo_pluto's
+     frozen reference forward adds a second forward's launches); then
+     `run.main` in train_cbv (rift_pluto, the behavior ego, S=64, 80 ticks,
+     a 1024-sample buffer: one fit round, a checkpoint, a saved pretrain),
+     eval from that pretrain, and eval --resume, which reads the
+     statistics back and runs only the missing episode.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -72,10 +92,11 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
 DIM, HEADS, MODES, REFS, POINTS = 128, 4, 12, 4, 120
 TOKENS = 32 + 64 + 1  # agents + map polygons + static objects
 HIST = ((20, 32, 2), (10, 64, 4), (5, 128, 8))  # (T, D, H) per level, 2 blocks each
+HIST_IN = (20, 9)  # the HistoryEncoder's input: T tokens of 9 channels
 WINDOWS = (3, 3, 5)  # band width per level
 EVAL_FRAMES = 40  # the GRPO evaluator's horizon
 CHUNK = 40  # closed-loop ticks per rollout_chunk call, as bench.py's K
-ACT_ATTENTION, ACT_STAGES = 17, 3  # launches per planner forward
+ACT_ATTENTION, ACT_STAGES = 17, 3  # launches per planner forward (stages: with gradients)
 # f32 closed loop, kernels vs plain versions: the most agents that may end
 # apart, as a share of the agents that were CBVs and of all agents
 LOOP_CBVS_APART, LOOP_AGENTS_APART = 0.05, 0.01
@@ -352,8 +373,7 @@ def stage_inputs(torch, gen, N, T, D, H, window):
     """One HistoryEncoder level's stage operands at the main path's shape:
     x [N, T, D], the 24 block weights (LN scales near 1, fan-in scaled
     matrices) and the two band-plus-RPB biases."""
-    from rift_tpu_torch.models.pluto.layers import band_rpb_bias
-    from rift_tpu_torch.ops.history import STAGE_WNAMES, weight_shapes
+    from rift_tpu_torch.ops.history import STAGE_WNAMES, band_rpb_bias, weight_shapes
 
     dev = "cuda"
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
@@ -400,7 +420,9 @@ def check_history(torch, history):
     products up to 3D = 384 deep summed in another order); times of the
     three launches against the plain version and nn.TransformerEncoder,
     whose error against the kernel (both blocks given block 0's bias, as
-    its one mask) is reported, not bounded."""
+    its one mask) is reported, not bounded. The bound counts the
+    multiply-adds of the products, and of the attention at the pairs the
+    band leaves."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     N = S * A
     calls, err, lib_err, flops, nbytes = [], 0.0, 0.0, 0, 0
@@ -418,9 +440,11 @@ def check_history(torch, history):
             same = history.local_stage(x, ws, biases[0], biases[0], H)
             lib_err = max(lib_err, (enc(x, mask=mask) - same).abs().max().item())
         calls.append((x, ws, biases, H, (enc, mask)))
-        R = N * T
-        # per block: qkv, out, mlp1, mlp2 products and the T x T attention
-        flops += 2 * (2 * R * 10 * D * D + 4 * R * T * D)
+        for b in biases:
+            # per block: the qkv, out, mlp1 and mlp2 products, and QK and AV
+            # over the (query, key) pairs the band leaves (exp(-1e9) is 0)
+            keys = int((b[0] > -1e8).sum())
+            flops += 2 * N * (10 * T * D * D + 2 * keys * D)
         nbytes += 4 * (2 * x.numel() + sum(w.numel() for w in ws) + 2 * biases[0].numel())
     bound, by = bound_ms(nbytes, flops, "float32")
     with torch.no_grad():
@@ -436,6 +460,88 @@ def check_history(torch, history):
         "library_max_abs_err": lib_err,
         "gflop": flops / 1e9,
         "timed_work": f"the 3 launches of one act call, N={N} rows, (T, D, H) = {HIST}, f32",
+    }
+
+
+def encoder_inputs(torch, gen, N):
+    """The HistoryEncoder's flat params (seeded: LN scales near 1, fan-in
+    scaled matrices, RPB tables of a few tenths) and x [N, 20, 9]."""
+    from rift_tpu_torch.ops.history import encoder_shapes
+
+    dev = "cuda"
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    W = {}
+    for name, shape in encoder_shapes().items():
+        if name.endswith("scale"):
+            W[name] = 1.0 + 0.1 * rn(*shape)
+        elif "rpb" in name:
+            W[name] = 0.5 * rn(*shape)
+        elif len(shape) == 1:
+            W[name] = 0.1 * rn(*shape)
+        else:
+            W[name] = rn(*shape) / math.sqrt(math.prod(shape[:-1]))
+    return rn(N, *HIST_IN), W
+
+
+def conv_taps(T, stride=1, rows=None):
+    """The (output row, input row) pairs of a k=3 XLA-SAME convolution over
+    T rows that fall on input rows, pads excluded, at `rows` of its output
+    (all by default)."""
+    out_len = -(-T // stride)
+    left = max((out_len - 1) * stride + 3 - T, 0) // 2
+    rows = range(out_len) if rows is None else rows
+    return sum(0 <= o * stride - left + k < T for o in rows for k in range(3))
+
+
+def check_history_encoder(torch, history):
+    """The whole-encoder kernel vs its plain version at one act call's N =
+    S*A history rows and at a ragged N (the last block's tail masked), f32,
+    atol 1e-4 (six LocalBlocks, three convolutions and the FPN, summed in
+    another order); times of one launch at N = S*A. The bound counts the
+    multiply-adds the last token needs: the convolutions' taps that fall
+    on rows (pads excluded); every row of the tokenizer, the downsamples
+    and the first five blocks; in the sixth block the K and V of every
+    row, but the Q, the out-projection and the MLP only at the rows the
+    lateral reads; attention over the band's keys; the laterals, the FPN
+    resizes and the final conv at the rows the last token reads."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err = 0.0
+    for N in (S * A, S * A + 1):
+        x, W = encoder_inputs(torch, gen, N)
+        got = history.history_encoder(x, W)
+        ref = history.history_encoder_ref(x, W)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        err = max(err, e)
+        if not (e <= 1e-4 and got.shape == (N, 128)):
+            raise AssertionError(f"history encoder N={N}: max err {e} > 1e-4")
+    N = S * A
+    x, W = encoder_inputs(torch, gen, N)
+    (T, C), O = HIST_IN, HIST[-1][1]
+    macs = conv_taps(T) * C * HIST[0][1]  # the tokenizer
+    for lv, ((Tl, D, _), w) in enumerate(zip(HIST, WINDOWS)):
+        # rows whose Q, out-projection and MLP the output needs: all, but in
+        # the last level's second block only those its lateral reads
+        last = lv + 1 == len(HIST)
+        for q in (Tl, Tl - history.LATERAL_ROWS[lv][0] + 1 if last else Tl):
+            macs += 2 * Tl * D * D + 8 * q * D * D + 2 * q * min(w, Tl) * D
+        if not last:
+            macs += conv_taps(Tl, 2) * D * 2 * D  # the stride-2 conv
+        macs += conv_taps(Tl, 1, history.LATERAL_ROWS[lv]) * D * O  # the lateral
+    macs += len(history.fpn_weights()) * O  # the FPN resizes
+    macs += conv_taps(T, 1, (T - 1,)) * O * O  # the final conv
+    flops = 2 * N * macs
+    nbytes = 4 * (x.numel() + N * O + sum(w.numel() for w in W.values()))
+    bound, by = bound_ms(nbytes, flops, "float32")
+    return {
+        "ms": cuda_ms(torch, lambda: history.history_encoder(x, W)),
+        "plain_ms": cuda_ms(torch, lambda: history.history_encoder_ref(x, W)),
+        "library_ms": None,
+        "bound_ms": bound,
+        "bound_by": by,
+        "max_abs_err": err,
+        "gflop": flops / 1e9,
+        "timed_work": f"one launch, N={N} rows of {HIST_IN}, f32",
     }
 
 
@@ -517,13 +623,24 @@ def check_gradients(torch, attention, points, history):
     return err
 
 
-def read_launches(kernel_modules):
-    return {name: mod.launches for name, mod in kernel_modules.items()}
+def kernel_counters():
+    """{kernel: (module, counter)}: the launch counter of each wrapper."""
+    from rift_tpu_torch.ops import attention, history, points, refline, retrack
+
+    return {
+        "fused_attention": (attention, "launches"), "points_encoder": (points, "launches"),
+        "retrack_rollout": (retrack, "launches"), "refline_matrices": (refline, "launches"),
+        "local_stage": (history, "launches"), "history_encoder": (history, "encoder_launches"),
+    }
 
 
-def zero_launches(kernel_modules):
-    for mod in kernel_modules.values():
-        mod.launches = 0
+def read_launches(counters):
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def zero_launches(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
 
 
 def time_calls(torch, fn, reps, warmup=1):
@@ -539,7 +656,7 @@ def time_calls(torch, fn, reps, warmup=1):
 
 def train_samples(torch, out):
     """One train act call's buffer samples, flattened to [S*C], and which
-    of them are real (the runner's `_store_chunk`)."""
+    of them are real (rollout.store_chunk)."""
     flat = lambda x: x.reshape((-1,) + x.shape[2:])
     feats = {g: {k: flat(v) for k, v in d.items()} if isinstance(d, dict) else flat(d)
              for g, d in out["features"].items()}
@@ -560,16 +677,21 @@ def act_launches(n_calls, train=False, map_tokens=False):
         "points_encoder": n_calls + int(map_tokens),
         "retrack_rollout": n_calls if train else 0,
         "refline_matrices": n_calls if train else 0,
-        "local_stage": ACT_STAGES * n_calls,
+        "local_stage": 0,
+        "history_encoder": n_calls,
     }
 
 
-def fit_launches(steps):
-    """Per fit step: one forward on the batch's per-sample features (its
-    attention and stages; the per-sample map rows and the ref lines through
-    the PointNet)."""
-    return {"fused_attention": ACT_ATTENTION * steps, "points_encoder": 2 * steps,
-            "retrack_rollout": 0, "refline_matrices": 0, "local_stage": ACT_STAGES * steps}
+def fit_launches(steps, encoder_trains=False, forwards=1):
+    """Per fit step: `forwards` forwards on the batch's per-sample features
+    (its attention; the per-sample map rows and the ref lines through the
+    PointNet; the HistoryEncoder in one whole-encoder launch when no
+    gradient flows through it, else through the three stage launches)."""
+    n = steps * forwards
+    return {"fused_attention": ACT_ATTENTION * n, "points_encoder": 2 * n,
+            "retrack_rollout": 0, "refline_matrices": 0,
+            "local_stage": ACT_STAGES * n if encoder_trains else 0,
+            "history_encoder": 0 if encoder_trains else n}
 
 
 def add(*counts):
@@ -592,7 +714,7 @@ def params_moved(torch, model, before):
     return moved, changed
 
 
-def closed_loop(torch, tmap, kernel_modules, plain_versions, kernel_versions):
+def closed_loop(torch, tmap, counters, plain_versions, kernel_versions):
     """Phase 9: the Runner's eval and fine-tune rounds at the bench
     configuration, env-steps/s as bench.py measures them, and an f32 eval
     chunk through the kernels against the plain versions."""
@@ -607,12 +729,12 @@ def closed_loop(torch, tmap, kernel_modules, plain_versions, kernel_versions):
     out, launches = {}, {}
 
     # Runner.eval: one episode of two K=40 chunks
-    zero_launches(kernel_modules)
+    zero_launches(counters)
     t1 = time.perf_counter()
     stats = runner.eval(num_episodes=1, chunk=CHUNK)
     torch.cuda.synchronize()
     out["runner_eval_s"] = time.perf_counter() - t1
-    launches["closed_loop_eval"] = read_launches(kernel_modules)
+    launches["closed_loop_eval"] = read_launches(counters)
     check_counts("Runner.eval", launches["closed_loop_eval"], act_launches(acts, map_tokens=True))
     recs = runner.stats.records
     promoted = sum(r.cbv_count for r in recs)
@@ -631,12 +753,12 @@ def closed_loop(torch, tmap, kernel_modules, plain_versions, kernel_versions):
 
     # Runner.train_cbv: two chunks of train ticks fill the buffer, then fit
     before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
-    zero_launches(kernel_modules)
+    zero_launches(counters)
     t1 = time.perf_counter()
     losses = runner.train_cbv(num_episodes=1, chunk=CHUNK)
     torch.cuda.synchronize()
     out["runner_train_cbv_s"] = time.perf_counter() - t1
-    launches["closed_loop_train"] = read_launches(kernel_modules)
+    launches["closed_loop_train"] = read_launches(counters)
     if runner.train_rounds != 1:
         raise AssertionError(f"Runner.train_cbv: buffer holds {runner.buffer.size} of "
                              f"{cfg.buffer_capacity} after {acts} ticks; no fit round")
@@ -722,6 +844,103 @@ def closed_loop(torch, tmap, kernel_modules, plain_versions, kernel_versions):
     return out, launches
 
 
+FINE_TUNED = ("rift_pluto", "grpo_pluto", "reinforce_pluto", "rs_pluto", "sft_pluto",
+              "bc_pluto", "rtr_pluto", "ppo_pluto")
+ZOO_BUFFER, ZOO_STEPS = 256, 2  # the first step of a round runs at lr 0 (warmup)
+# what bc_pluto's loss reads, across the model: every tensor there moves
+# (the heads no loss reads, agent_predictor and hidden_proj, and biases
+# whose gradient is 0, such as the yaw and speed heads', stay)
+BC_MOVES = ("AgentEncoder_0.HistoryEncoder_0", "MapEncoder_0.PointsEncoder_0", "enc0.",
+            "enc3.", "planning_decoder.layer0.", "planning_decoder.layer3.",
+            "planning_decoder.r_encoder", "planning_decoder.loc_head",
+            "planning_decoder.pi_head", "ref_free_decoder")
+
+
+def zoo_and_cli(torch, tmap, counters, scene):
+    """Phase 10: one short fit round of every fine-tune key on samples of
+    two full-width train ticks, then the CLI's train_cbv, eval and eval
+    --resume at the bench configuration."""
+    import dataclasses
+    import os
+    import shutil
+
+    from rift_tpu_torch import policies, run
+    from rift_tpu_torch.rl.trainer import trainable_mask
+    from rift_tpu_torch.rollout import rollout_chunk
+    from rift_tpu_torch.scenario import init_criteria
+
+    t0 = time.perf_counter()
+    out, launches = {"zoo": {}}, {}
+    state, spec = scene
+    pols = {k: policies.CBV_POLICY_LIST[k](tmap, {"buffer_capacity": ZOO_BUFFER})
+            for k in FINE_TUNED}
+    src = pols["rift_pluto"]
+    _, _, extras = rollout_chunk(src.model, tmap, spec, state, init_criteria(S, A, "cuda"),
+                                 max_cbvs=C, num_steps=2, train=True,
+                                 map_tok=src.map_tokens(), tick=0)
+    for key, pol in pols.items():
+        pol.store_chunk(extras)
+        if not pol.buffer_full():
+            raise AssertionError(f"{key}: buffer holds {pol.buffer.size} of {ZOO_BUFFER}")
+        pol.train_cfg = dataclasses.replace(pol.train_cfg, epochs=ZOO_STEPS, warmup_epochs=0)
+        mask = trainable_mask(pol.model, pol.train_cfg.trainable_prefixes)
+        before = {n: p.detach().clone() for n, p in pol.model.named_parameters()}
+        zero_launches(counters)
+        losses = pol.train_round()
+        torch.cuda.synchronize()
+        path = f"fit_{key}"
+        launches[path] = read_launches(counters)
+        check_counts(path, launches[path], fit_launches(
+            ZOO_STEPS, encoder_trains=key == "bc_pluto", forwards=2 if key == "grpo_pluto" else 1))
+        changed = {n for n, p in pol.model.named_parameters() if not torch.equal(p.detach(), before[n])}
+        frozen_moved = sorted(n for n in changed if not mask[n])
+        groups = ("planning_decoder.pi_head",) + (("value_head",) if key == "ppo_pluto" else ())
+        groups = BC_MOVES if key == "bc_pluto" else groups
+        still = sorted(n for n in mask if n.startswith(groups) and n not in changed)
+        if not all(math.isfinite(x) for x in losses) or frozen_moved or still:
+            raise AssertionError(f"{key}: losses {losses}, frozen moved {frozen_moved[:5]}, "
+                                 f"unmoved {still[:5]}")
+        out["zoo"][key] = {"losses": losses, "tensors_moved": len(changed),
+                           "tensors": len(mask)}
+    del pols, src, extras
+
+    cli_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    common = ["--ego_cfg", "behavior", "--cbv_cfg", "rift_pluto", "--num_scenario", str(S),
+              "--num_agents", str(A), "--blocks", "2", "--max_ticks", str(2 * CHUNK),
+              "--out_dir", cli_dir]
+    pre = os.path.join(cli_dir, "pretrain.npz")
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    g = run.main(["--mode", "train_cbv", "--num_episodes", "1", "--save_pretrain", pre,
+                  *common, "buffer_capacity=1024"])
+    torch.cuda.synchronize()
+    out["cli_train_cbv_s"] = time.perf_counter() - t1
+    launches["cli_train_cbv"] = read_launches(counters)
+    ckpt = os.path.join(cli_dir, "train_cbv", "behavior-rift_pluto-seed0", "model_ckpt")
+    if g.total_routes != S or os.listdir(ckpt) != ["rift_pluto-episode_0"] or not os.path.exists(pre):
+        raise AssertionError(f"CLI train_cbv: {g.total_routes} routes, checkpoints "
+                             f"{os.listdir(ckpt)}, pretrain saved: {os.path.exists(pre)}")
+    t1 = time.perf_counter()
+    run.main(["--mode", "eval", "--num_episodes", "1", "--pretrain", pre, *common])
+    results = os.path.join(cli_dir, "eval", "behavior-rift_pluto-seed0",
+                           "simulation_results.json")
+    with open(results) as f:
+        first = json.load(f)["records"]
+    g = run.main(["--mode", "eval", "--num_episodes", "2", "--resume", "--pretrain", pre,
+                  *common])
+    with open(results) as f:
+        records = json.load(f)["records"]
+    out["cli_eval_two_episodes_s"] = time.perf_counter() - t1
+    if g.total_routes != 2 * S or len(records) != 2 * S or records[:S] != first:
+        raise AssertionError(f"CLI eval --resume: {g.total_routes} routes, {len(records)} "
+                             f"records, the first episode's kept: {records[:S] == first}")
+    out["cli_eval"] = {"avg_driving_score": g.avg_driving_score,
+                       "avg_route_completion": g.avg_route_completion}
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -740,13 +959,12 @@ def main() -> int:
     from rift_tpu_torch.rl import TrainConfig, fit, rift_loss_fn, ring_append, ring_init
     from rift_tpu_torch.rl import evaluator
 
-    kernel_modules = {
-        "fused_attention": attention, "points_encoder": points,
-        "retrack_rollout": retrack, "refline_matrices": refline, "local_stage": history,
-    }
+    counters = kernel_counters()
     t0 = time.perf_counter()
     # ---- phase 1: build
-    logs = build.build_all(["attention", "points", "retrack", "refline", "history_stage"])
+    logs = build.build_all(
+        ["attention", "points", "retrack", "refline", "history_stage", "history_encoder"]
+    )
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -766,6 +984,7 @@ def main() -> int:
         "retrack_rollout": check_retrack(torch, retrack),
         "refline_matrices": check_refline(torch, refline),
         "local_stage": check_history(torch, history),
+        "history_encoder": check_history_encoder(torch, history),
     }
     grad_err = check_gradients(torch, attention, points, history)
     print(f"# map L={tmap.num_lanes}, kernels checked {time.perf_counter() - t0:.1f}s",
@@ -779,14 +998,14 @@ def main() -> int:
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
     launches = {}
-    zero_launches(kernel_modules)
+    zero_launches(counters)
     map_tok = canonical_map_tokens(model, tmap)
     outs = [
         pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, map_tok=map_tok)
         for state, spec in scenes
     ]
     torch.cuda.synchronize()
-    launches["eval_act"] = read_launches(kernel_modules)
+    launches["eval_act"] = read_launches(counters)
     check_counts("eval act", launches["eval_act"], act_launches(len(scenes), map_tokens=True))
     for out in outs:
         valid = int((out["cbv_slots"] >= 0).sum())
@@ -806,7 +1025,7 @@ def main() -> int:
     model32.load_state_dict(model.state_dict())
     tok32 = canonical_map_tokens(model32, tmap)
     kernel_fns = (layers.fused_attention, layers.points_encoder, layers.local_stage,
-                  evaluator.refline_matrices, evaluator.retrack_rollout)
+                  layers.history_encoder, evaluator.refline_matrices, evaluator.retrack_rollout)
 
     def plain_versions():
         layers.fused_attention = attention.fused_attention_ref
@@ -814,12 +1033,13 @@ def main() -> int:
             lambda x, m, w, out_dim, has_ln=True: points.points_forward_ref(x, m, w, has_ln)
         )
         layers.local_stage = history.local_stage_ref
+        layers.history_encoder = history.history_encoder_ref
         evaluator.refline_matrices = refline.refline_matrices_ref
         evaluator.retrack_rollout = retrack.retrack_rollout_ref
 
     def kernel_versions():
         (layers.fused_attention, layers.points_encoder, layers.local_stage,
-         evaluator.refline_matrices, evaluator.retrack_rollout) = kernel_fns
+         layers.history_encoder, evaluator.refline_matrices, evaluator.retrack_rollout) = kernel_fns
 
     got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, map_tok=tok32)
     plain_versions()
@@ -838,13 +1058,13 @@ def main() -> int:
 
     # ---- phase 6: the train act step at full width (the GRPO evaluator
     # through the retrack and refline kernels)
-    zero_launches(kernel_modules)
+    zero_launches(counters)
     train_outs = [
         pluto_cbv_act(model, tmap, spec_, state_, max_cbvs=C, train=True, map_tok=map_tok)
         for state_, spec_ in scenes
     ]
     torch.cuda.synchronize()
-    launches["train_act"] = read_launches(kernel_modules)
+    launches["train_act"] = read_launches(counters)
     check_counts("train act", launches["train_act"], act_launches(len(scenes), train=True))
     for out in train_outs:
         valid = out["adv_valid"]
@@ -896,13 +1116,13 @@ def main() -> int:
     fit_ms, losses = [], []
     # two rounds: the first carries the backward's one-time CUDA set-up
     for round_idx in range(2):
-        zero_launches(kernel_modules)
+        zero_launches(counters)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         losses += fit(model, buf, rift_loss_fn, cfg, gen, round_idx=round_idx)
         torch.cuda.synchronize()
         fit_ms.append((time.perf_counter() - t1) * 1e3 / steps)
-        launches["fit"] = read_launches(kernel_modules)
+        launches["fit"] = read_launches(counters)
         check_counts("fit", launches["fit"], fit_launches(steps))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"fit losses {losses}")
@@ -912,10 +1132,15 @@ def main() -> int:
     print(f"# fit done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
     # ---- phase 9: the closed loop
-    loop, loop_launches = closed_loop(torch, tmap, kernel_modules, plain_versions,
+    loop, loop_launches = closed_loop(torch, tmap, counters, plain_versions,
                                       kernel_versions)
     launches.update(loop_launches)
     print(f"# closed loop done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+    # ---- phase 10: the fine-tuning zoo and the CLI
+    zoo, zoo_launches = zoo_and_cli(torch, tmap, counters, scenes[0])
+    launches.update(zoo_launches)
+    print(f"# zoo and CLI done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
     kernels = []
     sources = {
@@ -924,14 +1149,21 @@ def main() -> int:
         "retrack_rollout": ("rift_tpu_torch/csrc/retrack.cu", "rift_tpu/ops/retrack.py:234"),
         "refline_matrices": ("rift_tpu_torch/csrc/refline.cu", "rift_tpu/ops/refline.py:88"),
         "local_stage": ("rift_tpu_torch/csrc/history_stage.cu", "rift_tpu/ops/history.py:359"),
+        "history_encoder": ("rift_tpu_torch/csrc/history_encoder.cu",
+                            "rift_tpu/ops/history.py:251"),
     }
     for name, r in results.items():
         src, replaces = sources[name]
+        # each kernel's launches on its path: the closed-loop fine-tune run
+        # (Runner.train_cbv), or for the stage kernel the one path that
+        # trains the HistoryEncoder, the bc_pluto fit
+        path = "fit_bc_pluto" if name == "local_stage" else "closed_loop_train"
+        if not launches[path][name] > 0:
+            raise AssertionError(f"{name}: no launch on its path {path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            # the closed-loop fine-tune run (Runner.train_cbv) launches all five
-            "launches": launches["closed_loop_train"][name],
-            "launches_by_path": {path: c[name] for path, c in launches.items()},
+            "launches": launches[path][name], "main_path": path,
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
             **r,
         })
     print(json.dumps({
@@ -952,6 +1184,7 @@ def main() -> int:
             "buffer": buf.size, "epoch_losses": losses, "pi_head_abs_delta": moved,
         },
         "closed_loop": loop,
+        "zoo_and_cli": zoo,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

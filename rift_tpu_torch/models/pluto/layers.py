@@ -10,16 +10,14 @@ and softmax in f32, as the JAX package does.
 
 from __future__ import annotations
 
-import functools
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import NEG_INF, fused_attention
-from ...ops.history import STAGE_WNAMES, local_stage
+from ...ops.history import encoder_forward, encoder_shapes, history_encoder, local_stage
 from ...ops.points import points_encoder
 
 
@@ -64,12 +62,6 @@ class Embed(nn.Embedding):
 
     def forward(self, idx):
         return super().forward(idx.long()).to(self.dt)
-
-
-def ln_f32(x, scale, bias, dt):
-    """The JAX package's hand-written LN: stats in f32, affine in dt."""
-    y = F.layer_norm(x.float(), x.shape[-1:], None, None, 1e-5)
-    return y.to(dt) * scale.to(dt) + bias.to(dt)
 
 
 class MLPLayer(nn.Module):
@@ -266,97 +258,23 @@ class TransformerEncoderLayer(nn.Module):
 
 
 # ---------------------------------------------------------------- history
-DEPTHS = (2, 2, 2)  # LocalBlocks per level: one fused stage each
-HEADS = (2, 4, 8)
-WINDOWS = (3, 3, 5)
-
-
-def block_dims(embed_dim: int):
-    """Width of each LocalBlock: embed_dim, doubled at every level."""
-    return [embed_dim * 2 ** lv for lv, depth in enumerate(DEPTHS) for _ in range(depth)]
-
-
-@functools.lru_cache(maxsize=None)
-def _band_index(n: int, window: int, device: torch.device):
-    """The clamped neighborhood band (0 / -1e9) [n, n] and the relative
-    offset index [n, n] into a [H, 2w-1] RPB, on `device`, made once."""
-    w = min(window, n)
-    i = np.arange(n)
-    start = np.clip(i - (w - 1) // 2, 0, n - w)
-    j = np.arange(n)
-    near = (j[None, :] >= start[:, None]) & (j[None, :] < start[:, None] + w)
-    band = torch.from_numpy(np.where(near, 0.0, -1e9).astype(np.float32))
-    rel = np.clip(i[None, :] - i[:, None] + (window - 1), 0, 2 * window - 2)
-    return band.to(device), torch.from_numpy(rel).to(device)
-
-
-def band_rpb_bias(rpb: torch.Tensor, n: int, window: int) -> torch.Tensor:
-    """[H, n, n] additive bias: clamped neighborhood band (0 / -1e9) plus
-    the natten relative-position bias (rift_tpu/ops/history.py)."""
-    band, rel = _band_index(n, window, rpb.device)
-    return band[None] + rpb[:, rel]
-
-
-def resize_matrix(src: int, dst: int) -> np.ndarray:
-    """[dst, src] linear-resize operator: half-pixel-center triangle
-    interpolation with edge clamping, jax.image.resize(method='linear')
-    semantics for upscaling (copy of rift_tpu/ops/history.py)."""
-    scale = src / dst
-    out = np.zeros((dst, src), np.float32)
-    for d in range(dst):
-        pos = (d + 0.5) * scale - 0.5
-        lo = int(np.floor(pos))
-        w = pos - lo
-        for idx, wt in ((lo, 1.0 - w), (lo + 1, w)):
-            out[d, min(max(idx, 0), src - 1)] += wt
-    return out
-
-
-def conv3(x, w, b, stride=1, dt=torch.float32):
-    """k=3 convolution over [N, T, C] with XLA "SAME" padding: total pad
-    max((out-1)*stride + 3 - T, 0), the odd one at the END (so stride 2
-    at even T pads (0, 1), unlike torch's padding=1). w is [3, in, out]."""
-    T = x.shape[-2]
-    out_len = -(-T // stride)
-    total = max((out_len - 1) * stride + 3 - T, 0)
-    xt = F.pad(x.to(dt).transpose(1, 2), (total // 2, total - total // 2))
-    y = F.conv1d(xt, w.to(dt).permute(2, 1, 0), stride=stride)
-    return y.transpose(1, 2) + b.to(dt)
-
-
-def history_forward(W, x, embed_dim=32, num_heads=HEADS, windows=WINDOWS,
-                    dtype=None):
+def history_forward(W, x, dtype=None):
     """HistoryEncoder forward over the flat param dict `W` (port of
-    rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode, with
-    its stage branch): conv tokenizer; each level's two LocalBlocks as one
-    fused stage through ops/history.py (the CUDA kernel on the card), in
-    f32 whatever `dtype`, as the JAX package's stage branch casts; stride-2
-    downsampling, FPN fusion, last-token readout. x [N, T, C] -> [N, 4*32]."""
+    rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode), x
+    [N, 20, 9] -> [N, 128] in `dtype`. When no gradient has to flow through
+    it (grad mode off, or neither x nor any weight requires grad), the
+    whole encoder runs in one launch of ops/history.py:history_encoder (the
+    CUDA kernel on the card), in f32 whatever `dtype`, as the JAX package's
+    kernel route casts (layers.py:657-663). Otherwise each level's two
+    LocalBlocks go through the differentiable fused stage
+    (ops/history.py:local_stage) in f32, as the JAX package's stage branch
+    casts, and the rest computes in `dtype`."""
     dt = dtype or torch.float32
-    x = conv3(x, W["conv0_w"], W["conv0_b"], dt=dt)
-    outs = []
-    levels = len(DEPTHS)
-    for lv in range(levels):
-        n = x.shape[-2]
-        blocks = (2 * lv, 2 * lv + 1)
-        sw = [W[f"blk{b}_{nm}"] for b in blocks for nm in STAGE_WNAMES]
-        b0, b1 = (band_rpb_bias(W[f"blk{b}_rpb"].float(), n, windows[lv]) for b in blocks)
-        x = local_stage(x.float().contiguous(), sw, b0, b1, num_heads[lv]).to(dt)
-        outs.append(ln_f32(x, W[f"level{lv}_ln_scale"], W[f"level{lv}_ln_bias"], dt))
-        if lv < levels - 1:
-            x = conv3(x, W[f"down{lv}_w"], W[f"down{lv}_b"], stride=2, dt=dt)
-            x = ln_f32(x, W[f"down{lv}_ln_scale"], W[f"down{lv}_ln_bias"], dt)
-
-    lat = [
-        conv3(outs[lv], W[f"lat{lv}_w"], W[f"lat{lv}_b"], dt=dt)
-        for lv in range(levels)
-    ]
-    for i in range(len(lat) - 1, 0, -1):
-        R = torch.from_numpy(resize_matrix(lat[i].shape[-2], lat[i - 1].shape[-2]))
-        up = torch.einsum("ts,nsc->ntc", R.to(lat[i]), lat[i])
-        lat[i - 1] = lat[i - 1] + up
-    out = conv3(lat[0], W["fpn_w"], W["fpn_b"], dt=dt)
-    return out[..., -1, :]
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in W.values())
+    ):
+        return encoder_forward(W, x, local_stage, dt)
+    return history_encoder(x, W).to(dt)
 
 
 class HistoryEncoder(nn.Module):
@@ -364,37 +282,11 @@ class HistoryEncoder(nn.Module):
     package's flat names (rift_tpu/ops/history.py:weight_order plus
     blk{i}_rpb), registered directly on the module."""
 
-    def __init__(self, in_dim=9, embed_dim=32, num_heads=HEADS, windows=WINDOWS,
-                 dtype=None):
+    def __init__(self, in_dim=9, embed_dim=32, dtype=None):
         super().__init__()
         self.embed_dim = embed_dim
-        self.num_heads, self.windows, self.dtype = num_heads, windows, dtype
-        dims = block_dims(embed_dim)
-        levels = len(DEPTHS)
-        ends = [dims[sum(DEPTHS[: lv + 1]) - 1] for lv in range(levels)]
-        shapes = {"conv0_w": (3, in_dim, embed_dim), "conv0_b": (embed_dim,)}
-        for i, d in enumerate(dims):
-            shapes.update({
-                f"blk{i}_ln1_scale": (d,), f"blk{i}_ln1_bias": (d,),
-                f"blk{i}_qkv_w": (d, 3 * d), f"blk{i}_qkv_b": (3 * d,),
-                f"blk{i}_out_w": (d, d), f"blk{i}_out_b": (d,),
-                f"blk{i}_ln2_scale": (d,), f"blk{i}_ln2_bias": (d,),
-                f"blk{i}_mlp1_w": (d, 3 * d), f"blk{i}_mlp1_b": (3 * d,),
-                f"blk{i}_mlp2_w": (3 * d, d), f"blk{i}_mlp2_b": (d,),
-            })
-        for lv, d in enumerate(ends):
-            shapes[f"level{lv}_ln_scale"] = shapes[f"level{lv}_ln_bias"] = (d,)
-            if lv < levels - 1:
-                shapes[f"down{lv}_w"] = (3, d, 2 * d)
-                shapes[f"down{lv}_b"] = (2 * d,)
-                shapes[f"down{lv}_ln_scale"] = shapes[f"down{lv}_ln_bias"] = (2 * d,)
-            shapes[f"lat{lv}_w"] = (3, d, dims[-1])
-            shapes[f"lat{lv}_b"] = (dims[-1],)
-        shapes["fpn_w"] = (3, dims[-1], dims[-1])
-        shapes["fpn_b"] = (dims[-1],)
-        for i in range(len(dims)):
-            lv = i // 2
-            shapes[f"blk{i}_rpb"] = (num_heads[lv], 2 * windows[lv] - 1)
+        self.dtype = dtype
+        shapes = encoder_shapes(embed_dim, in_dim)
         for name, s in shapes.items():
             if name.endswith(("_b", "_bias")) or "rpb" in name:
                 p = torch.zeros(s)
@@ -406,9 +298,7 @@ class HistoryEncoder(nn.Module):
 
     def forward(self, x):
         W = dict(self.named_parameters())
-        return history_forward(
-            W, x, self.embed_dim, self.num_heads, self.windows, self.dtype
-        )
+        return history_forward(W, x, self.dtype)
 
 
 class StateAttentionEncoder(nn.Module):

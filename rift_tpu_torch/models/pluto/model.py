@@ -261,7 +261,8 @@ class PlanningDecoder(nn.Module):
 
 class PlutoModel(nn.Module):
     """The full planner. `dtype` is the compute type (bf16 by default);
-    params and outputs stay f32. The model is built on `device` (CUDA
+    params and outputs stay f32. `value_head` adds the critic MLP on the
+    centre-agent token (ppo_pluto's). The model is built on `device` (CUDA
     unless the caller names another) from the global torch seed."""
 
     def __init__(
@@ -276,6 +277,7 @@ class PlutoModel(nn.Module):
         num_modes: int = 12,
         use_hidden_proj: bool = True,
         ref_free_traj: bool = True,
+        value_head: bool = False,
         dtype: torch.dtype | None = torch.bfloat16,
         points_norm: str = "ln",
         device=None,
@@ -301,6 +303,9 @@ class PlutoModel(nn.Module):
             self.hidden_proj_fc2 = Dense(dim, dim, dtype)
         if ref_free_traj:
             self.ref_free_decoder = MLPLayer(dim, 2 * dim, future_steps * 4, dtype)
+        self.has_value_head = value_head
+        if value_head:
+            self.value_head = MLPLayer(dim, dim, 1, dtype)
         self.to(resolve_device(device))
 
     def forward(self, data: Dict[str, Any]):
@@ -341,6 +346,8 @@ class PlutoModel(nn.Module):
         out = {"trajectory": trajectory, "probability": probability}
         if not no_aux:
             out["prediction"] = prediction
+        if self.has_value_head:
+            out["value"] = self.value_head(x[:, 0])[..., 0].float()
         if self.use_hidden_proj:
             h = torch.relu(self.hidden_proj_fc1(x[:, 0]))
             out["hidden"] = self.hidden_proj_fc2(h).float()

@@ -1,7 +1,6 @@
 """Pluto CBV policy (port of rift_tpu/models/pluto/policy.py:
 `select_trajectory`, `_neighbor_states`, `canonical_map_tokens` and both
-branches of `pluto_cbv_act`; the BC pretrain's `execute_teacher` comes
-later).
+branches of `pluto_cbv_act`, with the BC pretrain's `execute_teacher`).
 
 One call plans every CBV of every scenario: canonical features, the
 PlutoModel forward, candidate selection, and the chosen local waypoints
@@ -116,6 +115,7 @@ def pluto_cbv_act(
     train: bool = False,
     topk: int = TOPK,
     map_tok: torch.Tensor | None = None,
+    execute_teacher: bool = False,
 ):
     """Plan all CBVs of all scenarios (canonical tokens: the JAX package's
     canonical=True, the only mode ported so far).
@@ -129,16 +129,20 @@ def pluto_cbv_act(
       old_logits, advantage, adv_valid, rollout_return [S, C, R, M],
       value, teacher_speed, exec_speed [S, C], teacher_pos [S, C, 2],
       teacher_traj [S, C, 80, 2]: the train-mode signals, zeros in eval.
-    The eval branch runs under inference_mode; the train branch under
-    no_grad, so its features can feed a later fit.
+    With `execute_teacher` (train mode, the BC pretrain's expert rollouts)
+    the CBVs execute the privileged teacher's path: `traj` holds it and
+    `exec_speed` is taken from it. The eval branch runs under
+    inference_mode; the train branch under no_grad, so its features can
+    feed a later fit.
     """
     _check_device(model, tmap)
     mode = torch.no_grad() if train else torch.inference_mode()
     with mode:
-        return _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok)
+        return _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok,
+                    execute_teacher)
 
 
-def _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok):
+def _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok, execute_teacher):
     S, A = state.alive.shape
     cbv_slots = cbv_slot_assignment(state.is_cbv, max_cbvs)
     C = cbv_slots.shape[1]
@@ -183,6 +187,14 @@ def _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok):
     R, M = out["probability"].shape[1:3]
     if train:
         result.update(_train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid))
+        if execute_teacher:
+            # expert rollouts: the CBVs execute the teacher path, so cloning
+            # sees the expert's state visitation
+            teacher = result["teacher_traj"]
+            traj = torch.zeros((S, A) + teacher.shape[2:], dtype=torch.float32, device=dev)
+            traj[scen[slot_valid], slot[slot_valid]] = teacher[slot_valid]
+            result["traj"] = traj
+            result["exec_speed"] = _implied_speed(teacher)
         return result
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
     result.update({
@@ -197,6 +209,13 @@ def _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok):
         "exec_speed": zeros(S, C),
     })
     return result
+
+
+def _implied_speed(wp):
+    """The tracker's desired speed implied by [S, C, T, 2] executed
+    waypoints: their mean spacing over the first second / dt."""
+    step_d = torch.linalg.norm(torch.diff(wp[:, :, :10], dim=2), dim=-1)
+    return step_d.mean(-1) / 0.1
 
 
 def _train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid):
@@ -226,9 +245,7 @@ def _train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid):
     res["teacher_speed"] = v_k[..., :10].mean(-1)
     res["teacher_pos"] = teacher_wp[..., TEACHER_HORIZON_STEP, :]
     res["teacher_traj"] = teacher_wp
-    # the tracker's desired speed implied by the executed trajectory
-    step_d = torch.linalg.norm(torch.diff(wp[:, :, :10], dim=2), dim=-1)
-    res["exec_speed"] = step_d.mean(-1) / 0.1
+    res["exec_speed"] = _implied_speed(wp)
 
     # GRPO advantage, batched over all S*C CBVs: one retrack launch over
     # every candidate, one refline launch over every (CBV, line) pair

@@ -4,8 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface. `nvcc` compiles it for
 Hopper (`sm_90a`) into a shared library that `ctypes` loads; no PyTorch
 header is involved, so a build takes seconds. Libraries go to
 `build/kernels/` beside the package (git-ignored), or to
-`$RIFT_TORCH_KERNEL_DIR`, named by a hash of the source so an edited
-kernel is always rebuilt. Nothing is built or loaded at import time.
+`$RIFT_TORCH_KERNEL_DIR`, named by a hash of the source and the shared
+headers (`csrc/*.cuh`) so an edited kernel is always rebuilt. Nothing is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ def flags(name: str) -> tuple:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 

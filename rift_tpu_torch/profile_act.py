@@ -12,8 +12,9 @@ that rule recognition has promoted CBVs), then trace the env step alone
 (the world tick, criteria, churn, recognition on every second call) or an
 eval tick (the act, then the env step).
 Prints one JSON line: host wall time per call, device kernel time per call,
-the device's idle share, the number of kernel launches per call, and the
-kernels that take the most device time. Run from the repository root (it
+the device's idle share, the number of kernel launches per call, the
+launches per call of each hand-written kernel (its wrapper's counter),
+and the kernels that take the most device time. Run from the repository root (it
 reuses chip_smoke's scene set-up).
 """
 
@@ -83,12 +84,15 @@ def main() -> int:
         act()
     torch.cuda.synchronize()
 
+    counters = cs.kernel_counters()
+    cs.zero_launches(counters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             act()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    hand = {k: n / args.steps for k, n in cs.read_launches(counters).items()}
 
     def dev_us(e):  # the attribute's name changed across torch versions
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
@@ -115,6 +119,7 @@ def main() -> int:
             "device_kernel_ms_per_call": device_ms if kernels else "not measured",
             "idle_share": 1.0 - device_ms / wall_ms if kernels else "not measured",
             "launches_per_call": len(kernels) / args.steps,
+            "hand_kernel_launches_per_call": hand,
             "top_kernels_ms_per_call": {
                 name: round(ms / args.steps, 4) for name, (ms, _) in top
             },

@@ -18,6 +18,7 @@ import torch
 
 from .map.tensor_map import TensorMap
 from .models.pluto.policy import pluto_cbv_act
+from .rl.buffer import ring_append, ring_init
 from .rl.evaluator import GAMMA, executed_cbv_reward
 from .scenario.criteria import CriteriaState
 from .scenario.env import env_step
@@ -26,6 +27,12 @@ from .utils.tensors import tree_map
 
 GAE_LAMBDA = 0.95
 TEACHER_LAMBDA = 0.2  # reward_lambda of the reference's shaped return
+# the extras a fine-tune buffer keeps, beside the features
+SAMPLE_KEYS = (
+    "old_logits", "advantage", "valid", "rollout_return", "chosen_idx",
+    "teacher_speed", "teacher_pos", "teacher_traj", "value", "reward",
+    "ret", "ret_shaped", "gae", "gae_valid",
+)
 
 
 def _chunk_returns(rewards, dones, values):
@@ -94,6 +101,18 @@ def _with_returns(extras: dict) -> dict:
     return extras
 
 
+def store_chunk(buffer, extras: dict, capacity: int):
+    """Append [K, B, ...] chunk extras' valid samples to a ring buffer,
+    made on the first call (`buffer` None) with `capacity`. Returns it."""
+    merge = lambda x: x.reshape((-1,) + x.shape[2:])
+    samples = {"features": tree_map(merge, extras["features"])}
+    samples.update({k: merge(extras[k]) for k in SAMPLE_KEYS if k in extras})
+    if buffer is None:
+        buffer = ring_init(tree_map(lambda x: x[0], samples), capacity=capacity)
+    ring_append(buffer, samples, merge(extras["sample_valid"]))
+    return buffer
+
+
 def flush_pending(store_fn, pending: list):
     """Stack per-tick samples into [K, B] extras with returns and GAE, hand
     them to `store_fn` and clear the list."""
@@ -105,11 +124,14 @@ def flush_pending(store_fn, pending: list):
 def rollout_chunk(model, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
                   crit: CriteriaState, max_cbvs: int = 3, num_steps: int = 10,
                   train: bool = False, with_policy: bool = True,
-                  map_tok: torch.Tensor | None = None, *, tick: int):
+                  map_tok: torch.Tensor | None = None, execute_teacher: bool = False,
+                  *, tick: int):
     """Advance all scenarios `num_steps` ticks with the rule ego: the Pluto
     CBVs act (canonical tokens, `map_tok` precomputed), then the env
-    steps; `with_policy=False` runs the world alone. `tick` is the state's
-    tick, kept on the host (`TrafficEnv.advance`).
+    steps; `with_policy=False` runs the world alone. `execute_teacher`
+    (train mode) makes the CBVs execute the teacher's path, as the BC
+    pretrain collects. `tick` is the state's tick, kept on the host
+    (`TrafficEnv.advance`).
 
     Returns (state, crit, extras). In train mode, extras stacks the per-tick
     buffer samples with leading dims [num_steps, S*C]: features, old_logits,
@@ -120,7 +142,8 @@ def rollout_chunk(model, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
     for k in range(num_steps):
         if with_policy:
             res = pluto_cbv_act(
-                model, tmap, spec, state, max_cbvs=max_cbvs, train=train, map_tok=map_tok
+                model, tmap, spec, state, max_cbvs=max_cbvs, train=train, map_tok=map_tok,
+                execute_teacher=execute_teacher,
             )
             state, crit = env_step(
                 tmap, spec, state, crit, cbv_traj=res["traj"], cbv_traj_mask=res["mask"],

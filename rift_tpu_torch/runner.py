@@ -16,12 +16,11 @@ import torch
 
 from .map.tensor_map import TensorMap
 from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
-from .rl import TrainConfig, fit, rift_loss_fn, ring_append, ring_init, ring_reset
-from .rollout import flush_pending, rollout_chunk, tick_extras
+from .rl import TrainConfig, fit, rift_loss_fn, ring_reset
+from .rollout import flush_pending, rollout_chunk, store_chunk, tick_extras
 from .scenario import TrafficEnv
 from .scenario.statistics import StatisticsManager
 from .utils.device import resolve_device
-from .utils.tensors import tree_map
 
 
 @dataclass
@@ -38,12 +37,6 @@ class RunnerConfig:
 
 
 class Runner:
-    SAMPLE_KEYS = (
-        "old_logits", "advantage", "valid", "rollout_return", "chosen_idx",
-        "teacher_speed", "teacher_pos", "value", "reward", "ret",
-        "ret_shaped", "gae", "gae_valid",
-    )
-
     def __init__(self, tmap: TensorMap, cfg: RunnerConfig | None = None, device=None):
         self.cfg = cfg or RunnerConfig()
         self.device = resolve_device(device)
@@ -122,15 +115,7 @@ class Runner:
         return state, crit, spec
 
     def _store_chunk(self, extras):
-        """Append [K, B, ...] chunk samples to the ring buffer."""
-        merge = lambda x: x.reshape((-1,) + x.shape[2:])
-        samples = {"features": tree_map(merge, extras["features"])}
-        samples.update({k: merge(extras[k]) for k in self.SAMPLE_KEYS if k in extras})
-        if self.buffer is None:
-            self.buffer = ring_init(
-                tree_map(lambda x: x[0], samples), capacity=self.cfg.buffer_capacity
-            )
-        ring_append(self.buffer, samples, merge(extras["sample_valid"]))
+        self.buffer = store_chunk(self.buffer, extras, self.cfg.buffer_capacity)
 
     def train_cbv(self, num_episodes: int = 10, chunk: int = 10):
         """Closed-loop RIFT fine-tuning: episodes of train ticks; each time

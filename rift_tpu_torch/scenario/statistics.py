@@ -1,8 +1,8 @@
 """Statistics manager: leaderboard records and their aggregation (port of
-rift_tpu/scenario/statistics.py: `RouteRecord`, `GlobalStats`,
-`StatisticsManager.register_episode` and `compute_global_statistics` with
-the helpers they call; saving, loading, resume and the live text come with
-the CLI).
+rift_tpu/scenario/statistics.py: `RouteRecord`, `GlobalStats` and
+`StatisticsManager` with the helpers it calls: records, the global row,
+the metric table, the live text, and the results file that a resumed run
+reads back).
 
 Per-route records carry score_composed = route completion x infraction
 penalty, the CBV behaviour sums and distributions and the ego criticality
@@ -12,8 +12,10 @@ paper's Table 1 (BASELINE.md). Numbers leave the device once per episode.
 
 from __future__ import annotations
 
+import json
 import math
-from dataclasses import dataclass, field
+import os
+from dataclasses import asdict, dataclass, field
 
 import numpy as np
 
@@ -170,8 +172,14 @@ def _status(c, s) -> str:
 
 
 class StatisticsManager:
-    def __init__(self):
+    def __init__(self, checkpoint_path: str | None = None, resume: bool = False):
+        """Records load from `checkpoint_path` only when `resume` is set;
+        otherwise a stale results file is overwritten at the first save.
+        With a path, every registered episode is saved."""
         self.records: list[RouteRecord] = []
+        self.checkpoint_path = checkpoint_path
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            self._load()
 
     def register_episode(self, crit: CriteriaState, state: SimState, spec: ScenarioSpec,
                          route_ids: list[str] | None = None, dt: float = 0.1,
@@ -231,6 +239,8 @@ class StatisticsManager:
                     for key in ("RTTC", "ACT", "EI")
                 },
             ))
+        if self.checkpoint_path:
+            self.save()
 
     def _merged_cbv_hist(self, key: str) -> np.ndarray:
         labels = _hist_labels(CBV_EDGES[key])
@@ -299,3 +309,75 @@ class StatisticsManager:
             * sum(x.cbv_reach_goal_count for x in r) / max(sum(x.cbv_count for x in r), 1),
             min_speed_pct=float(np.mean([x.min_speed_pct for x in r])),
         )
+
+    def compute_metric_table(self) -> dict:
+        """The BASELINE.md Table-1 row of this run (one seed)."""
+        g = self.compute_global_statistics()
+        return {
+            "Driving Score": g.avg_driving_score,
+            "Route Completion": g.avg_route_completion,
+            "Infraction Penalty": g.avg_infraction_penalty,
+            "Ego Blocked Ratio": g.ego_blocked_ratio,
+            "ORR": g.off_road_ratio,
+            "UC (%)": g.uncomfortable_pct,
+            "CPK": g.collisions_per_km,
+            "RP": g.route_progress_m,
+            "SW speed": g.sw_speed,
+            "WD speed": g.wd_speed,
+            "SW acc": g.sw_acc,
+            "RTTC": (g.rttc_mean, g.rttc_std),
+            "ACT": (g.act_mean, g.act_std),
+        }
+
+    def live_results_text(self) -> str:
+        """Human-readable progress: a per-route table and running
+        averages."""
+        lines = [
+            f"{'idx':>4} {'route':<18} {'status':<12} {'DS':>6} {'RC%':>6} "
+            f"{'pen':>5}  infractions",
+        ]
+        for r in self.records:
+            inf = [f"{name} x{n}" for name, n in (
+                ("veh", r.collisions_vehicle), ("ped", r.collisions_pedestrian),
+                ("static", r.collisions_static), ("red", r.red_light),
+                ("stop", r.stop_infraction),
+            ) if n]
+            inf += [name for name, flag in (
+                ("blocked", r.blocked), ("deviation", r.route_deviation), ("timeout", r.timeout),
+            ) if flag]
+            lines.append(
+                f"{r.index:>4} {r.route_id:<18.18} {r.status:<12.12} "
+                f"{r.driving_score:>6.1f} {r.route_completion:>6.1f} "
+                f"{r.infraction_penalty:>5.2f}  {', '.join(inf) or '-'}"
+            )
+        if self.records:
+            n = len(self.records)
+            avg_ds = sum(r.driving_score for r in self.records) / n
+            avg_rc = sum(r.route_completion for r in self.records) / n
+            lines.append("-" * 64)
+            lines.append(f"routes {n}  avg DS {avg_ds:.2f}  avg RC {avg_rc:.2f}")
+        return "\n".join(lines) + "\n"
+
+    def save(self, path: str | None = None):
+        """The records and the global row as JSON (the JAX package's
+        simulation_results.json layout)."""
+        path = path or self.checkpoint_path
+        if not path:
+            return
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        payload = {
+            "progress": [len(self.records), len(self.records)],
+            "records": [asdict(x) for x in self.records],
+            "global": asdict(self.compute_global_statistics()),
+        }
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=2)
+
+    def _load(self):
+        with open(self.checkpoint_path) as f:
+            payload = json.load(f)
+        self.records = [RouteRecord(**x) for x in payload.get("records", [])]
+
+    @property
+    def resume_index(self) -> int:
+        return len(self.records)

@@ -1,9 +1,12 @@
-"""Weights from the JAX package (port of rift_tpu/utils/params_io.py).
+"""Weights in the JAX package's format (port of rift_tpu/utils/params_io.py).
 
 `load_params_npz` reads a `save_params_npz` file of the JAX package into a
 nested dict of numpy arrays. `load_jax_params` fills a torch module whose
 submodules carry the flax names, from the flat {path: array} form, e.g.
-`params/planning_decoder/layer0/r2r/q/kernel`.
+`params/planning_decoder/layer0/r2r/q/kernel`; with `strict=False` it
+merges instead, as the JAX package's `merge_params` (keys absent from the
+file keep their values). `save_params_npz` writes a torch module in that
+flat-key format, so a pretrain moves between the two packages both ways.
 """
 
 from __future__ import annotations
@@ -83,15 +86,24 @@ def _target(model: nn.Module, key: str):
 
 
 @torch.no_grad()
-def load_jax_params(model: nn.Module, flat: dict) -> None:
+def load_jax_params(model: nn.Module, flat: dict, strict: bool = True) -> None:
     """Fill `model` from the JAX package's flat params. Strict: a key with
     no torch counterpart, a shape mismatch, or a torch parameter left
-    unset raises."""
+    unset raises. Not strict (`merge_params`): keys with no counterpart
+    are skipped and parameters absent from `flat` keep their values, but
+    a file of which no key matches raises (a wrong key format)."""
     params = dict(model.named_parameters())
     unset = set(params)
     for key, arr in flat.items():
-        pname, fn = _target(model, key)
+        try:
+            pname, fn = _target(model, key)
+        except KeyError:
+            if strict:
+                raise
+            continue
         if pname not in params:
+            if not strict:
+                continue
             raise KeyError(f"load_jax_params: {key!r} -> {pname!r} not in the model")
         p = params[pname]
         value = torch.from_numpy(np.ascontiguousarray(fn(np.asarray(arr))))
@@ -102,5 +114,54 @@ def load_jax_params(model: nn.Module, flat: dict) -> None:
             )
         p.copy_(value.to(p.dtype))
         unset.discard(pname)
-    if unset:
+    if strict and unset:
         raise KeyError(f"load_jax_params: parameters left unset: {sorted(unset)}")
+    if unset == set(params):
+        raise ValueError(f"load_jax_params: no key of the file matches the model "
+                         f"(file: {sorted(flat)[:4]})")
+
+
+def jax_flat_params(model: nn.Module) -> dict:
+    """The model's parameters as the JAX package's flat {path: array}: the
+    inverse of `load_jax_params`. A Linear's weight [out, in] becomes the
+    flax kernel [in, out] (an Attention projection's: q/k/v [in, H, Dh]
+    with bias [H, Dh], out [H, Dh, out]); LayerNorm weights become
+    `scale`, Embedding weights `embedding`; a PointsEncoder's params sit
+    under the `flat` child that flax adds for batched input."""
+    from ..models.pluto.layers import Attention, PointsEncoder
+
+    mods = dict(model.named_modules())
+    flat = {}
+    for pname, p in model.named_parameters():
+        *path, leaf = pname.split(".")
+        mod = mods[".".join(path)]
+        parent = mods[".".join(path[:-1])] if path else None
+        a = p.detach().float().cpu().numpy()
+        keys = []
+        for i, part in enumerate(path):
+            keys.append(part)
+            if isinstance(mods[".".join(path[: i + 1])], PointsEncoder):
+                keys.append("flat")
+        if isinstance(mod, nn.Linear):
+            if isinstance(parent, Attention):
+                H = parent.num_heads
+                if path[-1] == "out":
+                    a = a.T.reshape(H, -1, a.shape[0]) if leaf == "weight" else a
+                else:
+                    a = a.T.reshape(a.shape[1], H, -1) if leaf == "weight" else a.reshape(H, -1)
+            elif leaf == "weight":
+                a = a.T
+            leaf = "kernel" if leaf == "weight" else leaf
+        elif isinstance(mod, nn.LayerNorm) and leaf == "weight":
+            leaf = "scale"
+        elif isinstance(mod, nn.Embedding) and leaf == "weight":
+            leaf = "embedding"
+        flat["/".join(["params", *keys, leaf])] = np.ascontiguousarray(a)
+    return flat
+
+
+def save_params_npz(model: nn.Module, path: str) -> None:
+    """A flat npz of the model's parameters in the JAX package's format
+    (rift_tpu/utils/params_io.py:save_params_npz), readable by both
+    packages' `load_params_npz`."""
+    np.savez(path, **jax_flat_params(model))

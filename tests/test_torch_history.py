@@ -2,8 +2,10 @@
 JAX package's, on the CPU: `local_stage_ref`, the plain version of the CUDA
 stage kernel, against the TPU kernel `local_stage_pallas` run in interpret
 mode at the three main-path (T, D, H, window) shapes, and the port's
-`history_forward` (every level through the stage) against
-`history_forward_jnp` (block by block). Inputs and weights are made from
+`history_forward` against `history_forward_jnp` (block by block): with no
+gradient required it takes the whole-encoder route, whose plain version
+runs every level through `local_stage_ref` (the stage route with
+gradients: tests/test_torch_history_encoder.py). Inputs and weights are made from
 numpy seeds.
 
 Tolerances: the stage 1e-4 (atol and rtol: two LocalBlocks, products up
@@ -21,8 +23,8 @@ import torch
 from rift_tpu.models.pluto.layers import history_forward_jnp
 from rift_tpu.ops.history import _STAGE_WNAMES, local_stage_pallas, rpb_names, weight_order
 from rift_tpu.ops.history import band_rpb_bias as jax_band_rpb_bias
-from rift_tpu_torch.models.pluto.layers import HistoryEncoder, band_rpb_bias, history_forward
-from rift_tpu_torch.ops.history import STAGE_WNAMES, local_stage
+from rift_tpu_torch.models.pluto.layers import HistoryEncoder, history_forward
+from rift_tpu_torch.ops.history import STAGE_WNAMES, band_rpb_bias, local_stage
 from torch_parity import STAGE_LEVELS, one_torch_thread, stage_inputs
 
 N = 6  # history rows
@@ -46,8 +48,9 @@ def test_local_stage_matches_pallas(level):
 
 
 def test_history_forward_matches_jnp():
-    """The port's stage route through all three levels against the JAX
-    package's block-by-block reference, on one seeded flat param dict."""
+    """The port's forward (the whole-encoder route, whose plain version runs
+    all three levels through the stage's) against the JAX package's
+    block-by-block reference, on one seeded flat param dict."""
     mod = HistoryEncoder(9, 32)
     r = np.random.default_rng(11)
     W = {}

@@ -17,7 +17,9 @@ a candidate along another path: see test_retrack_kernel_matches_plain);
 refline 1e-5 with the nearest indices equal (candidate
 points sit off the line's midpoints, so no two line points tie); the
 HistoryEncoder stage 1e-4 at the main path's N = 1536 rows (two f32
-LocalBlocks, products up to 384 deep summed in another order). The
+LocalBlocks, products up to 384 deep summed in another order), and the
+whole-encoder kernel 1e-4 there (six blocks, the convolutions and the
+FPN). The launch counters show which kernels a path takes. The
 gradients through the kernels' autograd Functions equal the plain
 versions' gradients (both backwards recompute through the plain version;
 the forward outputs feed nothing else).
@@ -27,8 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from rift_tpu_torch.models.pluto.layers import band_rpb_bias
 from rift_tpu_torch.ops.attention import fused_attention, fused_attention_ref
+from rift_tpu_torch.ops.history import band_rpb_bias, history_encoder, history_encoder_ref
 from rift_tpu_torch.ops.history import local_stage, local_stage_ref
 from rift_tpu_torch.ops.points import points_encoder, points_forward_ref
 from rift_tpu_torch.ops.refline import refline_matrices, refline_matrices_ref
@@ -298,3 +300,81 @@ def test_history_stage_function_gradient_matches_plain(cuda_device):
         grads.append([t.grad for t in xs])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def _encoder_params(device, seed=0):
+    """The HistoryEncoder's flat params from a numpy seed, RPB tables
+    perturbed."""
+    from rift_tpu_torch.ops.history import encoder_shapes
+
+    r = np.random.default_rng(seed)
+    W = {}
+    for name, s in encoder_shapes().items():
+        if name.endswith("scale"):
+            a = 1.0 + 0.1 * r.normal(size=s)
+        elif "rpb" in name:
+            a = 0.5 * r.normal(size=s)
+        elif len(s) == 1:
+            a = 0.1 * r.normal(size=s)
+        else:
+            a = r.normal(size=s) / np.sqrt(np.prod(s[:-1]))
+        W[name] = torch.from_numpy(a.astype(np.float32)).to(device)
+    return W
+
+
+@pytest.mark.cuda
+def test_history_encoder_kernel_matches_plain(cuda_device):
+    """The whole-encoder kernel at the main path's N = 1536 rows and at
+    ragged N (the last block's tail masked), f32, atol 1e-4 (six f32
+    LocalBlocks, the convolutions and the FPN, summed in another order)."""
+    W = _encoder_params(cuda_device)
+    r = np.random.default_rng(1)
+    for N in (1536, 1537, 3):
+        x = torch.from_numpy(r.normal(size=(N, 20, 9)).astype(np.float32)).to(cuda_device)
+        got = history_encoder(x, W)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, history_encoder_ref(x, W), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="forward only"):
+        history_encoder(x.requires_grad_(True), W)
+
+
+@pytest.mark.cuda
+def test_launch_counts(cuda_device):
+    """Where the launches go: the HistoryEncoder takes the whole-encoder
+    kernel once when no gradient flows through it and the stage kernel at
+    each of its three levels when one does; an eval act at depth 1 launches
+    5 attentions (the ego state, one encoder layer, three decoder
+    attentions), 1 whole-encoder kernel and 1 PointNet, and no stage."""
+    from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+    from rift_tpu_torch.models.pluto.layers import HistoryEncoder
+    from rift_tpu_torch.map import make_grid_town
+    from rift_tpu_torch.ops import attention, history, points
+    from rift_tpu_torch.scenario import TrafficEnv, wake_all_bvs
+
+    enc = HistoryEncoder(9, 32).to(cuda_device)
+    x = torch.randn(64, 20, 9, device=cuda_device)
+    count = lambda: (history.encoder_launches, history.launches)
+    before = count()
+    with torch.no_grad():
+        enc(x)
+    after = count()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+    enc(x).sum().backward()
+    end = count()
+    assert (end[0] - after[0], end[1] - after[1]) == (0, 3)
+
+    torch.manual_seed(0)
+    tmap = make_grid_town(blocks=1, num_lanes=2, device=cuda_device)
+    state, _, spec = TrafficEnv(tmap, num_scenarios=2, num_agents=8, max_cbvs=2,
+                                device=cuda_device).reset()
+    state = wake_all_bvs(state)
+    is_cbv = state.is_cbv.clone()
+    is_cbv[:, 1:3] = state.alive[:, 1:3]
+    model = PlutoModel(encoder_depth=1, decoder_depth=1, device=cuda_device)
+    tok = canonical_map_tokens(model, tmap)
+    mods = (attention, history, points)
+    start = [m.launches for m in mods] + [history.encoder_launches]
+    pluto_cbv_act(model, tmap, spec, state.replace(is_cbv=is_cbv), max_cbvs=2, map_tok=tok)
+    torch.cuda.synchronize()
+    done = [m.launches for m in mods] + [history.encoder_launches]
+    assert [b - a for a, b in zip(start, done)] == [5, 0, 1, 1]

@@ -27,7 +27,10 @@ from rift_tpu.models.pluto.policy import pluto_cbv_act as jax_act
 from rift_tpu.scenario import TrafficEnv as JaxTrafficEnv
 from rift_tpu.scenario import cbv_slot_assignment as jax_slots
 from rift_tpu.scenario import wake_all_bvs as jax_wake
+from rift_tpu.utils.params_io import load_params_npz as jax_load_npz
+from rift_tpu.utils.params_io import merge_params as jax_merge
 from rift_tpu.utils.params_io import save_params_npz
+from rift_tpu_torch.policies import CBV_POLICY_LIST
 from rift_tpu_torch.models.pluto import (
     PlutoModel,
     build_cbv_features,
@@ -37,8 +40,10 @@ from rift_tpu_torch.models.pluto import (
 from rift_tpu_torch.scenario import cbv_slot_assignment
 from rift_tpu_torch.utils.params_io import (
     flatten_params,
+    jax_flat_params,
     load_jax_params,
     load_params_npz,
+    save_params_npz as torch_save_npz,
 )
 from torch_parity import map_from_jax, one_torch_thread, spec_from_jax, state_from_jax
 
@@ -238,12 +243,26 @@ def test_features_match(world):
 
 
 def test_pluto_model_forward_matches(world):
-    """Full forward on the canonical batch, aux head included."""
-    ref = jax.jit(world["jmodel"].apply)(world["params"], world["batch"])
+    """Full forward on the canonical batch, aux head included, with
+    ppo_pluto's value head (the critic MLP on the centre-agent token,
+    seeded apart from the fixture's weights)."""
+    sds = lambda *s: jax.ShapeDtypeStruct(s, jnp.float32)
+    head = {"Dense_0": {"kernel": sds(128, 128), "bias": sds(128)},
+            "LayerNorm_0": {"scale": sds(128), "bias": sds(128)},
+            "Dense_1": {"kernel": sds(128, 1), "bias": sds(1)}}
+    params = {"params": {**world["params"]["params"],
+                         "value_head": _seeded_params(head, seed=1)}}
+    jmodel = JaxPluto(encoder_depth=DEPTH, decoder_depth=DEPTH, value_head=True,
+                      dtype=jnp.float32)
+    ref = jax.jit(jmodel.apply)(params, world["batch"])
+    model = PlutoModel(encoder_depth=DEPTH, decoder_depth=DEPTH, value_head=True,
+                       dtype=torch.float32, device="cpu")
+    load_jax_params(model, flatten_params(params))
     with torch.no_grad():
-        got = world["model"](_to_torch(world["batch"]))
+        got = model(_to_torch(world["batch"]))
+    assert got["value"].shape == (S * C,)
     for k in ("probability", "trajectory", "output_ref_free_trajectory", "hidden",
-              "output_prediction"):
+              "output_prediction", "value"):
         np.testing.assert_allclose(
             got[k].numpy(), np.asarray(ref[k]), atol=1e-3, rtol=1e-3, err_msg=k
         )
@@ -289,3 +308,36 @@ def test_pluto_model_bf16_close(world):
         np.testing.assert_allclose(
             got[k].numpy(), np.asarray(ref[k]), atol=8e-2, rtol=0, err_msg=k
         )
+
+
+def test_pretrain_npz_moves_between_packages(world, tmp_path):
+    """Port -> JAX: the port's `save_params_npz` of the seeded model holds
+    exactly the JAX param tree's keys, shapes and values, read by the JAX
+    package's `load_params_npz` and taken whole by its `merge_params`.
+    JAX -> port: the JAX package's npz loads into ppo_pluto's model
+    (`load_pretrain`, merge semantics), whose value head, absent from the
+    file, keeps its init and is exported under the JAX names."""
+    path = str(tmp_path / "port.npz")
+    torch_save_npz(world["model"], path)
+    got = flatten_params(jax_load_npz(path))
+    want = flatten_params(world["params"])
+    assert sorted(got) == sorted(want)
+    for k, v in flatten_params(jax_merge(world["params"], jax_load_npz(path))).items():
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(want[k]), err_msg=k)
+
+    pol = CBV_POLICY_LIST["ppo_pluto"](world["tmap"], {"encoder_depth": DEPTH,
+                                                       "decoder_depth": DEPTH})
+    head = {n: p.detach().clone() for n, p in pol.model.value_head.named_parameters()}
+    jpath = str(tmp_path / "jax.npz")
+    save_params_npz(world["params"], jpath)
+    pol.load_pretrain(jpath)
+    loaded = jax_flat_params(pol.model)
+    for k, v in want.items():
+        np.testing.assert_array_equal(loaded[k], np.asarray(v), err_msg=k)
+    for n, p in pol.model.value_head.named_parameters():
+        assert torch.equal(p.detach(), head[n]), n
+    assert {k: v.shape for k, v in loaded.items() if "value_head" in k} == {
+        "params/value_head/Dense_0/kernel": (128, 128), "params/value_head/Dense_0/bias": (128,),
+        "params/value_head/LayerNorm_0/scale": (128,), "params/value_head/LayerNorm_0/bias": (128,),
+        "params/value_head/Dense_1/kernel": (128, 1), "params/value_head/Dense_1/bias": (1,),
+    }

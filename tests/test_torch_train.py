@@ -120,15 +120,22 @@ def world(tmp_path_factory):
     tmap = map_from_jax(jmap)  # equal to the port's grid town, bit for bit (test_torch_map)
     state, spec = state_from_jax(jstate), spec_from_jax(jspec)
 
-    ref = jax_act(
+    # the JAX train act compiled without XLA's fusion pass: it compiles in
+    # about half the time, and its outputs stay within 2.1e-5 of the
+    # default compile's (discrete outputs identical), far inside the 1e-3
+    # the port is held to
+    jtok = jax_map_tokens(jmodel, params, jmap)
+    act = jax_act.lower(
         jmodel, params, jmap, jspec, jstate, max_cbvs=C, train=True, canonical=True,
-        map_tok=jax_map_tokens(jmodel, params, jmap),
-    )
+        map_tok=jtok,
+    ).compile({"xla_disable_hlo_passes": "fusion"})
+    ref = act(params, jmap, jspec, jstate, map_tok=jtok)
     got = pluto_cbv_act(
         model, tmap, spec, state, max_cbvs=C, train=True,
         map_tok=canonical_map_tokens(model, tmap),
     )
-    return dict(jmodel=jmodel, params=params, flat=flat, model=model, ref=ref, got=got)
+    return dict(jmodel=jmodel, params=params, flat=flat, model=model, ref=ref, got=got,
+                tmap=tmap, state=state, spec=spec)
 
 
 def test_train_act_matches_jax(world):
@@ -147,6 +154,37 @@ def test_train_act_matches_jax(world):
         np.testing.assert_allclose(
             got["features"][g][k].numpy(), np.asarray(ref["features"][g][k]), atol=1e-5
         )
+
+
+def test_execute_teacher_drives_the_teacher_path(world):
+    """The BC pretrain's expert rollouts (policy.py:252-266 in the JAX
+    package): the CBV slots carry the JAX teacher's 80 waypoints, every
+    other slot stays zero, and `exec_speed` is the JAX teacher path's
+    implied speed (mean spacing of its first 10 points / 0.1 s), both
+    within the train act's 1e-3; the training signals are those of the
+    plain train act."""
+    ref, got = world["ref"], world["got"]
+    res = pluto_cbv_act(
+        world["model"], world["tmap"], world["spec"], world["state"], max_cbvs=C,
+        train=True, map_tok=canonical_map_tokens(world["model"], world["tmap"]),
+        execute_teacher=True,
+    )
+    teacher = np.asarray(ref["teacher_traj"])  # [S, C, 80, 2]
+    slots = np.asarray(ref["cbv_slots"])
+    want = np.zeros(res["traj"].shape, np.float32)
+    for s in range(S):
+        for c in range(C):
+            if slots[s, c] >= 0:
+                want[s, slots[s, c]] = teacher[s, c]
+    assert (slots >= 0).sum() == 4 and res["traj"].shape[2] == teacher.shape[2]
+    np.testing.assert_allclose(res["traj"].numpy(), want, atol=1e-3, rtol=1e-3)
+    assert not res["traj"].numpy()[want == 0].any()
+    step = np.linalg.norm(np.diff(teacher[:, :, :10], axis=2), axis=-1)
+    np.testing.assert_allclose(res["exec_speed"].numpy(), step.mean(-1) / 0.1,
+                               atol=1e-3, rtol=1e-3)
+    for k in ("advantage", "teacher_speed", "teacher_traj", "old_logits"):
+        torch.testing.assert_close(res[k], got[k], rtol=0, atol=0)
+    assert torch.equal(res["mask"], got["mask"])
 
 
 def test_per_sample_forward_matches_shared_tokens(world):
