@@ -13,17 +13,18 @@ Phases (any failure raises and exits non-zero):
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain version at the main path's shapes:
      attention in f32 (atol 1e-5) and bf16 (atol 2e-2), the PointNet in
-     f32 (atol 1e-4), the retrack rollout (at most 1% of the 9216
-     candidates diverging by more than 2e-3), the refline matrices (at
-     most 1% of the nearest points flipped, 1e-4 elsewhere), the
-     HistoryEncoder stage at its three levels in f32 (atol 1e-4) and the
-     whole-encoder kernel at N = 1536 and at a ragged N = 1537 history rows
-     in f32 (atol 1e-4); time kernel, plain version and, where one PyTorch
-     call computes the same function, that call (scaled_dot_product_
-     attention, nn.TransformerEncoder; timed only, the port never calls
-     them); then the gradients through the attention, PointNet and stage
-     autograd Functions against the plain versions' gradients (f32, atol
-     1e-4);
+     f32 at the act's and a fit step's shapes (atol 1e-4), the retrack
+     rollout (at most 1% of the 9216 candidates diverging by more than
+     2e-3), the refline matrices (at most 1% of the nearest points
+     flipped, 1e-4 elsewhere), the HistoryEncoder stage at its three
+     levels in f32 (atol 1e-4) and the whole-encoder kernel at N = 1536, a
+     ragged N = 1537 and a fit step's N = 8192 history rows in f32 (atol
+     1e-4); time kernel, plain version and, where one PyTorch call
+     computes the same function, that call (scaled_dot_product_attention,
+     nn.TransformerEncoder; timed only, the port never calls them), with
+     the PointNet and the whole encoder timed at the fit's shape too; then
+     the gradients through the attention, PointNet and stage autograd
+     Functions against the plain versions' gradients (f32, atol 1e-4);
   3. build the grid town (blocks=2, 2 lanes per direction) and reset
      TrafficEnv at S=64 scenarios x A=24 agents x C=3 CBVs for three seeds,
      with CBVs forced on slots 1..3 and a constant-speed history;
@@ -88,7 +89,11 @@ import time
 S, A, C = 64, 24, 3
 SEEDS = (0, 1, 2)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet), at 700 W
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
+# dense peaks: f32 on the CUDA cores, bf16 on the tensor cores, and f32-
+# accurate products on the tensor cores as three TF32 products (3xTF32:
+# 495 / 3 TFLOP/s), the arithmetic of the PointNet and HistoryEncoder
+# kernels, whose bounds count against it
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 DIM, HEADS, MODES, REFS, POINTS = 128, 4, 12, 4, 120
 TOKENS = 32 + 64 + 1  # agents + map polygons + static objects
 HIST = ((20, 32, 2), (10, 64, 4), (5, 128, 8))  # (T, D, H) per level, 2 blocks each
@@ -97,6 +102,8 @@ WINDOWS = (3, 3, 5)  # band width per level
 EVAL_FRAMES = 40  # the GRPO evaluator's horizon
 CHUNK = 40  # closed-loop ticks per rollout_chunk call, as bench.py's K
 ACT_ATTENTION, ACT_STAGES = 17, 3  # launches per planner forward (stages: with gradients)
+FIT_MAP_ROWS = 256 * 64  # a fit step's per-sample map rows: batch x lanes
+FIT_HISTORY_ROWS = 256 * 32  # a fit step's history rows: batch x agents
 # f32 closed loop, kernels vs plain versions: the most agents that may end
 # apart, as a share of the agents that were CBVs and of all agents
 LOOP_CBVS_APART, LOOP_AGENTS_APART = 0.05, 0.01
@@ -225,13 +232,29 @@ def points_inputs(torch, gen, N, P, Cin, prefix_mask):
     return x, mask, w
 
 
+def points_bound(x, mask, w, dtype="tf32x3"):
+    """The PointNet's bound on this run's inputs: the multiply-adds of the
+    valid points (and the pooled half of the concatenated product once per
+    row), each input read once and the output written once."""
+    N, _, Cin = x.shape
+    per_point = Cin * 128 + 128 * 256 + 256 * 256 + 256 * DIM
+    flops = 2 * int(mask.sum()) * per_point + 2 * N * 256 * 256
+    nbytes = x.numel() * 4 + mask.numel() + sum(t.numel() for t in w) * 4 + N * DIM * 4
+    return bound_ms(nbytes, flops, dtype)
+
+
 def check_points(torch, points, num_lanes):
     """Kernel vs plain version at the reference-line shape (one launch per
-    act call) and the map-token shape (once per episode); times of the
-    per-call reference-line launch."""
+    act call), the map-token shape (once per episode) and a fit step's
+    map-row shape (N = 256 samples x 64 lanes of 20 points, every point
+    valid); times of the per-call reference-line launch and of the fit's
+    map-row launch, each with its bound (3xTF32, and f32 on the CUDA cores
+    for comparison)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     err = 0.0
-    for N, P, Cin, prefix in ((S * C * REFS, POINTS, 6, True), (num_lanes, 20, 10, False)):
+    shapes = ((S * C * REFS, POINTS, 6, True), (num_lanes, 20, 10, False),
+              (FIT_MAP_ROWS, 20, 10, False))
+    for N, P, Cin, prefix in shapes:
         x, mask, w = points_inputs(torch, gen, N, P, Cin, prefix)
         got = points.points_encoder(x, mask, w, DIM)
         ref = points.points_forward_ref(x, mask, w)
@@ -242,20 +265,27 @@ def check_points(torch, points, num_lanes):
             raise AssertionError(f"points {(N, P, Cin)}: max err {e} > 1e-4")
 
     x, mask, w = points_inputs(torch, gen, S * C * REFS, POINTS, 6, True)
-    N = x.shape[0]
-    valid = int(mask.sum())
-    per_point = 6 * 128 + 128 * 256 + 256 * 256 + 256 * DIM
-    flops = 2 * valid * per_point + 2 * N * 256 * 256
-    nbytes = x.numel() * 4 + mask.numel() + sum(t.numel() for t in w) * 4 + N * DIM * 4
-    bound, by = bound_ms(nbytes, flops, "float32")
+    bound, by = points_bound(x, mask, w)
+    fx, fmask, fw = points_inputs(torch, gen, FIT_MAP_ROWS, 20, 10, False)
+    fit_bound, fit_by = points_bound(fx, fmask, fw)
     return {
         "ms": cuda_ms(torch, lambda: points.points_encoder(x, mask, w, DIM)),
         "plain_ms": cuda_ms(torch, lambda: points.points_forward_ref(x, mask, w)),
         "library_ms": None,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_ms_f32_cuda_cores": points_bound(x, mask, w, "float32")[0],
         "max_abs_err": err,
-        "timed_work": f"the reference-line launch of one act call, N={N}, P={POINTS}, f32",
+        "timed_work": f"the reference-line launch of one act call, N={x.shape[0]}, "
+                      f"P={POINTS}, f32",
+        "fit_ms": cuda_ms(torch, lambda: points.points_encoder(fx, fmask, fw, DIM), iters=10),
+        "fit_plain_ms": cuda_ms(torch, lambda: points.points_forward_ref(fx, fmask, fw),
+                                iters=5),
+        "fit_bound_ms": fit_bound,
+        "fit_bound_by": fit_by,
+        "fit_bound_ms_f32_cuda_cores": points_bound(fx, fmask, fw, "float32")[0],
+        "fit_timed_work": f"a fit step's map-row launch, N={FIT_MAP_ROWS}, P=20, C=10, "
+                          "every point valid, f32",
     }
 
 
@@ -446,7 +476,7 @@ def check_history(torch, history):
             keys = int((b[0] > -1e8).sum())
             flops += 2 * N * (10 * T * D * D + 2 * keys * D)
         nbytes += 4 * (2 * x.numel() + sum(w.numel() for w in ws) + 2 * biases[0].numel())
-    bound, by = bound_ms(nbytes, flops, "float32")
+    bound, by = bound_ms(nbytes, flops, "tf32x3")
     with torch.no_grad():
         lib_ms = cuda_ms(torch, lambda: [enc(x, mask=m) for x, _, _, _, (enc, m) in calls])
     return {
@@ -456,6 +486,7 @@ def check_history(torch, history):
         "library_ms": lib_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_ms_f32_cuda_cores": bound_ms(nbytes, flops, "float32")[0],
         "max_abs_err": err,
         "library_max_abs_err": lib_err,
         "gflop": flops / 1e9,
@@ -493,30 +524,11 @@ def conv_taps(T, stride=1, rows=None):
     return sum(0 <= o * stride - left + k < T for o in rows for k in range(3))
 
 
-def check_history_encoder(torch, history):
-    """The whole-encoder kernel vs its plain version at one act call's N =
-    S*A history rows and at a ragged N (the last block's tail masked), f32,
-    atol 1e-4 (six LocalBlocks, three convolutions and the FPN, summed in
-    another order); times of one launch at N = S*A. The bound counts the
-    multiply-adds the last token needs: the convolutions' taps that fall
-    on rows (pads excluded); every row of the tokenizer, the downsamples
-    and the first five blocks; in the sixth block the K and V of every
-    row, but the Q, the out-projection and the MLP only at the rows the
-    lateral reads; attention over the band's keys; the laterals, the FPN
-    resizes and the final conv at the rows the last token reads."""
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    err = 0.0
-    for N in (S * A, S * A + 1):
-        x, W = encoder_inputs(torch, gen, N)
-        got = history.history_encoder(x, W)
-        ref = history.history_encoder_ref(x, W)
-        torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        err = max(err, e)
-        if not (e <= 1e-4 and got.shape == (N, 128)):
-            raise AssertionError(f"history encoder N={N}: max err {e} > 1e-4")
-    N = S * A
-    x, W = encoder_inputs(torch, gen, N)
+def encoder_bound(history, x, W, dtype="tf32x3"):
+    """The whole encoder's bound on x [N, 20, 9]: the multiply-adds the last
+    token needs, the input read once, the weights once, the output written
+    once. Returns (ms, bound_by, GFLOP)."""
+    N = x.shape[0]
     (T, C), O = HIST_IN, HIST[-1][1]
     macs = conv_taps(T) * C * HIST[0][1]  # the tokenizer
     for lv, ((Tl, D, _), w) in enumerate(zip(HIST, WINDOWS)):
@@ -532,16 +544,53 @@ def check_history_encoder(torch, history):
     macs += conv_taps(T, 1, (T - 1,)) * O * O  # the final conv
     flops = 2 * N * macs
     nbytes = 4 * (x.numel() + N * O + sum(w.numel() for w in W.values()))
-    bound, by = bound_ms(nbytes, flops, "float32")
+    return (*bound_ms(nbytes, flops, dtype), flops / 1e9)
+
+
+def check_history_encoder(torch, history):
+    """The whole-encoder kernel vs its plain version at one act call's N =
+    S*A history rows, at a ragged N (the last block's share not a multiple
+    of its chunk) and at a fit step's N = 256 x 32 history rows, f32, atol
+    1e-4 (six LocalBlocks, three convolutions and the FPN, summed in
+    another order); times of one launch at N = S*A and at the fit's N. The
+    bound counts the multiply-adds the last token needs: the convolutions'
+    taps that fall on rows (pads excluded); every row of the tokenizer, the
+    downsamples and the first five blocks; in the sixth block the K and V
+    of every row, but the Q, the out-projection and the MLP only at the
+    rows the lateral reads; attention over the band's keys; the laterals,
+    the FPN resizes and the final conv at the rows the last token reads."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err = 0.0
+    for N in (S * A, S * A + 1, FIT_HISTORY_ROWS):
+        x, W = encoder_inputs(torch, gen, N)
+        got = history.history_encoder(x, W)
+        ref = history.history_encoder_ref(x, W)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        err = max(err, e)
+        if not (e <= 1e-4 and got.shape == (N, 128)):
+            raise AssertionError(f"history encoder N={N}: max err {e} > 1e-4")
+    x, W = encoder_inputs(torch, gen, S * A)
+    bound, by, gflop = encoder_bound(history, x, W)
+    fx, fW = encoder_inputs(torch, gen, FIT_HISTORY_ROWS)
+    fit_bound, fit_by, fit_gflop = encoder_bound(history, fx, fW)
     return {
         "ms": cuda_ms(torch, lambda: history.history_encoder(x, W)),
         "plain_ms": cuda_ms(torch, lambda: history.history_encoder_ref(x, W)),
         "library_ms": None,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_ms_f32_cuda_cores": encoder_bound(history, x, W, "float32")[0],
         "max_abs_err": err,
-        "gflop": flops / 1e9,
-        "timed_work": f"one launch, N={N} rows of {HIST_IN}, f32",
+        "gflop": gflop,
+        "timed_work": f"one launch, N={S * A} rows of {HIST_IN}, f32",
+        "fit_ms": cuda_ms(torch, lambda: history.history_encoder(fx, fW), iters=10),
+        "fit_plain_ms": cuda_ms(torch, lambda: history.history_encoder_ref(fx, fW), iters=5),
+        "fit_bound_ms": fit_bound,
+        "fit_bound_by": fit_by,
+        "fit_bound_ms_f32_cuda_cores": encoder_bound(history, fx, fW, "float32")[0],
+        "fit_gflop": fit_gflop,
+        "fit_timed_work": f"one launch, N={FIT_HISTORY_ROWS} rows (a fit step's), f32",
     }
 
 
@@ -987,6 +1036,11 @@ def main() -> int:
         "history_encoder": check_history_encoder(torch, history),
     }
     grad_err = check_gradients(torch, attention, points, history)
+    for name in ("points_encoder", "history_encoder"):
+        r = results[name]
+        print(f"# {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['timed_work']}); "
+              f"{r['fit_ms']:.4f} ms (bound {r['fit_bound_ms']:.4f}, {r['fit_timed_work']})",
+              file=sys.stderr)
     print(f"# map L={tmap.num_lanes}, kernels checked {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
 

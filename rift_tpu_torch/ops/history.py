@@ -45,7 +45,6 @@ DEPTHS = (2, 2, 2)  # LocalBlocks per level: one fused stage each
 HEADS = (2, 4, 8)
 WINDOWS = (3, 3, 5)
 ENCODER_T, ENCODER_CIN, ENCODER_EMBED = 20, 9, 32  # the encoder kernel's shapes
-ENCODER_SEQS_PER_BLOCK = 4
 # the FPN rows the last token depends on, per lateral level: lat0 rows
 # 18-19 (the final conv's taps), lat1 rows 8-9, lat2 rows 3-4
 LATERAL_ROWS = ((18, 19), (8, 9), (3, 4))
@@ -341,16 +340,12 @@ def _encoder_forward(x, W):
         if w.device != x.device or not w.is_contiguous() or w.dtype != torch.float32:
             raise ValueError("history_encoder: weights must be contiguous f32 on x's device")
     lib = _lib_encoder()
-    G = ENCODER_SEQS_PER_BLOCK
-    smem = lib.rift_history_encoder_smem_bytes(G)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"history_encoder: {smem} B of shared memory per block")
     N = x.shape[0]
     out = torch.empty((N, ENCODER_EMBED * 2 ** (len(DEPTHS) - 1)), device=x.device)
     params = (ctypes.c_void_p * len(names))(*[W[n].data_ptr() for n in names])
     up = (ctypes.c_float * 8)(*fpn_weights())
     err = lib.rift_history_encoder_fwd(
-        x.data_ptr(), out.data_ptr(), params, up, N, G,
+        x.data_ptr(), out.data_ptr(), params, up, N,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
@@ -367,10 +362,8 @@ def _lib_encoder():
     fn = lib.rift_history_encoder_fwd
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, ctypes.POINTER(ctypes.c_float), I, I, P]
+        fn.argtypes = [P, P, P, ctypes.POINTER(ctypes.c_float), I, P]
         fn.restype = ctypes.c_int
-        lib.rift_history_encoder_smem_bytes.argtypes = [I]
-        lib.rift_history_encoder_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -20,7 +20,9 @@ import ctypes
 import torch
 
 NEG = -1e9
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# the kernel packs the valid points of whole rows into tiles of 128 points
+MAX_POINTS = 128
+MAX_CHANNELS = 32
 
 # kernel launches since the counter was last set to 0
 launches = 0
@@ -102,10 +104,12 @@ def _forward(x, mask, weights, out_dim, has_ln):
             raise ValueError(f"points_encoder: weight {i} is {tuple(w.shape)}, not {s}")
     if not 1 <= out_dim <= 256:
         raise ValueError(f"points_encoder: out_dim {out_dim} > 256")
+    if not (1 <= P <= MAX_POINTS and 1 <= C <= MAX_CHANNELS):
+        raise ValueError(
+            f"points_encoder: P={P}, C={C} outside the kernel's range "
+            f"(P <= {MAX_POINTS}, C <= {MAX_CHANNELS})"
+        )
     lib = _lib()
-    smem = lib.rift_points_smem_bytes(P, C)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"points_encoder: P={P}, C={C} needs {smem} B of shared memory")
     tensors = [x, mask, *weights]
     for t in tensors:
         if t.device != x.device or not t.is_contiguous():
@@ -133,6 +137,4 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rift_points_fwd.argtypes = [P] * 15 + [I] * 5 + [P]
         lib.rift_points_fwd.restype = ctypes.c_int
-        lib.rift_points_smem_bytes.argtypes = [I, I]
-        lib.rift_points_smem_bytes.restype = ctypes.c_longlong
     return lib

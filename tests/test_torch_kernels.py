@@ -80,6 +80,31 @@ def test_points_kernel_matches_plain(cuda_device, has_ln):
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "N, P, kind",
+    [(1003, 20, "all"), (300, 1, "random"), (300, 17, "random")],
+    ids=["P20-every-point-valid", "P1-all-masked-row", "P17-all-masked-row"],
+)
+def test_points_kernel_tile_edges(cuda_device, N, P, kind):
+    """The edges of the kernel's packing of whole rows into 128-point
+    tiles: six rows of 20 points a tile with N not a multiple of six, and
+    16 rows of one point or seven of 17 with masked points and an
+    all-masked row."""
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.normal(0, 2.0, (N, P, 10)).astype(np.float32))
+    if kind == "all":
+        mask = torch.ones(N, P, dtype=torch.bool)
+    else:
+        mask = torch.from_numpy(r.random((N, P)) < 0.7)
+        mask[5] = False
+    w = [torch.from_numpy(a).to(cuda_device) for a in points_weights(3, 10, 128)]
+    x, mask = x.to(cuda_device), mask.to(cuda_device)
+    got = points_encoder(x, mask, w, 128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, points_forward_ref(x, mask, w), atol=2e-4, rtol=1e-5)
+
+
 def _replay(ref_pos, trace, dt=0.1):
     """Steps the plain version once from every state of `trace` (center
     [G, T, 2], heading [G, T], speed [G, T] of a rollout along ref_pos,
@@ -336,6 +361,21 @@ def test_history_encoder_kernel_matches_plain(cuda_device):
         torch.testing.assert_close(got, history_encoder_ref(x, W), atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="forward only"):
         history_encoder(x.requires_grad_(True), W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8192, 5])
+def test_history_encoder_kernel_chunk_edges(cuda_device, N):
+    """The whole-encoder kernel at a fit step's N = 8192 history rows (a
+    block walks several chunks of sequences) and at N = 5 (one block, one
+    partial chunk), f32, atol 1e-4."""
+    W = _encoder_params(cuda_device, seed=2)
+    r = np.random.default_rng(3)
+    x = torch.from_numpy(r.normal(size=(N, 20, 9)).astype(np.float32)).to(cuda_device)
+    with torch.no_grad():
+        got = history_encoder(x, W)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, history_encoder_ref(x, W), atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Times the PointNet and whole-HistoryEncoder CUDA kernels of two checkouts
+of this repository on one card, in turns: baseline, this tree, this tree,
+baseline.
+
+    git archive HEAD~1 | (mkdir -p build/baseline && tar -x -C build/baseline)
+    python3 tools/kernel_ab.py --baseline build/baseline
+
+Each turn is a fresh process whose `rift_tpu_torch` is the checkout's own
+(PYTHONPATH), so each builds and launches its own kernels behind the same
+Python entry points (`points_encoder`, `history_encoder`). The inputs are
+made on the card from fixed seeds, the same in every turn: the PointNet at
+the act's reference-line launch (N=768 rows of P=120 points, C=6, a random
+valid prefix per row) and at the fit's map-row launch (N=16384, P=20, C=10,
+every point valid); the whole encoder at the act's N=1536 and the fit's
+N=8192 history rows. Each turn also checks its kernels against the plain
+versions (max abs error, f32), and times on the host clock (ending in a
+synchronise) the eval act step and a fine-tune step at batch 256 as
+`python3 -m rift_tpu_torch.profile_act --mode eval|fit` sets them up
+(chip_smoke's scene at S=64, the full-width bf16 model), without the
+profiler. Prints one JSON line per turn and a summary line with each
+number per turn, the card's name and power limit. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+DIM = 128
+POINT_SHAPES = {"points_act": (768, 120, 6, True), "points_fit": (16384, 20, 10, False)}
+ENCODER_SHAPES = {"encoder_act": 1536, "encoder_fit": 8192}
+
+
+def cuda_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def points_inputs(torch, seed, N, P, C, prefix):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = 2.0 * rn(N, P, C)
+    if prefix:
+        n = torch.randint(0, P + 1, (N, 1), generator=gen, device="cuda")
+        mask = torch.arange(P, device="cuda")[None] < n
+    else:
+        mask = torch.ones(N, P, dtype=torch.bool, device="cuda")
+    w = [
+        0.3 * rn(C, 128), 0.3 * rn(128), 0.5 + 0.3 * rn(128).abs(), 0.3 * rn(128),
+        0.3 * rn(128, 256), 0.3 * rn(256),
+        0.3 * rn(512, 256), 0.3 * rn(256), 0.5 + 0.3 * rn(256).abs(), 0.3 * rn(256),
+        0.3 * rn(256, DIM), 0.3 * rn(DIM),
+    ]
+    return x, mask, w
+
+
+def encoder_inputs(torch, seed, N):
+    from rift_tpu_torch.ops.history import encoder_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    W = {}
+    for name, shape in encoder_shapes().items():
+        if name.endswith("scale"):
+            W[name] = 1.0 + 0.1 * rn(*shape)
+        elif "rpb" in name:
+            W[name] = 0.5 * rn(*shape)
+        elif len(shape) == 1:
+            W[name] = 0.1 * rn(*shape)
+        else:
+            W[name] = rn(*shape) / math.sqrt(math.prod(shape[:-1]))
+    return rn(N, 20, 9), W
+
+
+def host_ms(torch, fn, reps, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def step_times(torch) -> dict:
+    """Host ms per eval act call and per fine-tune step (batch 256,
+    pi_head trained), as profile_act sets them up."""
+    import chip_smoke as cs
+    from rift_tpu_torch.map import make_grid_town
+    from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+    from rift_tpu_torch.rl import TrainConfig, gather_batch, make_optimizer, rift_loss_fn
+    from rift_tpu_torch.rl import ring_append, ring_init, train_step
+
+    tmap = make_grid_town(blocks=2, num_lanes=2)
+    state, spec = cs.make_scene(torch, tmap, 0)
+    torch.manual_seed(0)
+    model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
+    tok = canonical_map_tokens(model, tmap)
+    act = lambda train: pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, train=train,
+                                      map_tok=tok)
+    act_ms = host_ms(torch, lambda: act(False), 10)
+    samples, valid = cs.train_samples(torch, act(True))
+    first = lambda t: {k: first(x) for k, x in t.items()} if isinstance(t, dict) else t[0]
+    buf = ring_append(ring_init(first(samples), capacity=256), samples, valid)
+    cfg = TrainConfig()
+    batch = gather_batch(buf, torch.arange(cfg.batch_size, device="cuda") % buf.size)
+    opt = make_optimizer(model, cfg)
+    for n, p in model.named_parameters():  # frozen, as fit() holds them
+        p.requires_grad_("pi_head" in n)
+    fit_ms = host_ms(torch, lambda: train_step(model, opt, rift_loss_fn, batch, cfg.lr, cfg), 20)
+    return {"eval_act_step": {"ms": act_ms}, "fit_step": {"ms": fit_ms}}
+
+
+def turn() -> dict:
+    """Time and check this process's kernels, then the steps."""
+    import torch
+    import rift_tpu_torch
+    from rift_tpu_torch.ops import history, points
+
+    out = {"package": str(Path(rift_tpu_torch.__file__).resolve().parent.parent)}
+    for name, (N, P, C, prefix) in POINT_SHAPES.items():
+        x, mask, w = points_inputs(torch, 1, N, P, C, prefix)
+        got = points.points_encoder(x, mask, w, DIM)
+        err = (got - points.points_forward_ref(x, mask, w)).abs().max().item()
+        ms = cuda_ms(torch, lambda: points.points_encoder(x, mask, w, DIM))
+        out[name] = {"ms": ms, "max_abs_err": err, "valid_points": int(mask.sum())}
+    with torch.no_grad():
+        for name, N in ENCODER_SHAPES.items():
+            x, W = encoder_inputs(torch, 6, N)
+            got = history.history_encoder(x, W)
+            err = (got - history.history_encoder_ref(x, W)).abs().max().item()
+            ms = cuda_ms(torch, lambda: history.history_encoder(x, W))
+            out[name] = {"ms": ms, "max_abs_err": err}
+    out.update(step_times(torch))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", help="directory of the other checkout")
+    ap.add_argument("--turn", action="store_true", help="time this process's kernels only")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    if args.turn:
+        print(json.dumps(turn()))
+        return 0
+    if not args.baseline:
+        ap.error("--baseline is required")
+    here = Path(__file__).resolve().parent.parent
+    base = Path(args.baseline).resolve()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    turns = []
+    for label, tree in (("baseline", base), ("this", here), ("this", here), ("baseline", base)):
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        env.pop("RIFT_TORCH_KERNEL_DIR", None)
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--turn"],
+            cwd=tree, env=env, capture_output=True, text=True, timeout=600,
+        )
+        if res.returncode != 0:
+            print(res.stdout, res.stderr, file=sys.stderr)
+            raise RuntimeError(f"turn {label} in {tree} failed")
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        r["label"] = label
+        print(json.dumps(r))
+        turns.append(r)
+    summary = {"card": card}
+    for name in (*POINT_SHAPES, *ENCODER_SHAPES, "eval_act_step", "fit_step"):
+        summary[name] = {"ms_by_turn": [(t["label"], t[name]["ms"]) for t in turns]}
+        if "max_abs_err" in turns[0][name]:
+            summary[name]["max_abs_err"] = max(t[name]["max_abs_err"] for t in turns)
+    print(card)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
