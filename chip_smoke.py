@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
   1. build the six kernels from rift_tpu_torch/csrc (one nvcc each,
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain version at the main path's shapes:
-     attention in f32 (atol 1e-5) and bf16 (atol 2e-2), the PointNet in
+     attention in f32 (atol 1e-5) and bf16 (atol 2e-2), also at the tile
+     edges of ATTN_EDGES, the PointNet in
      f32 at the act's and a fit step's shapes (atol 1e-4), the retrack
      rollout (at most 1% of the 9216 candidates diverging by more than
      2e-3), the refline matrices (at most 1% of the nearest points
@@ -21,8 +22,10 @@ Phases (any failure raises and exits non-zero):
      ragged N = 1537 and a fit step's N = 8192 history rows in f32 (atol
      1e-4); time kernel, plain version and, where one PyTorch call
      computes the same function, that call (scaled_dot_product_attention,
-     nn.TransformerEncoder; timed only, the port never calls them), with
-     the PointNet and the whole encoder timed at the fit's shape too; then
+     nn.TransformerEncoder; timed only, the port never calls them; the
+     attention's 17 launches of a few µs each launched from Python and,
+     as device time, replayed from a CUDA graph), with the PointNet
+     and the whole encoder timed at the fit's shape too; then
      the gradients through the attention, PointNet and stage autograd
      Functions against the plain versions' gradients (f32, atol 1e-4);
   3. build the grid town (blocks=2, 2 lanes per direction) and reset
@@ -109,11 +112,12 @@ FIT_HISTORY_ROWS = 256 * 32  # a fit step's history rows: batch x agents
 LOOP_CBVS_APART, LOOP_AGENTS_APART = 0.05, 0.01
 
 
-def attention_shapes():
-    """(B, Tq, Tk, D, H, kind) of the attention launches of one act call at
-    S x C = 192 CBVs: the ego state encoder, the scene encoder and the
-    decoder (the HistoryEncoder's attention runs inside the stage kernel)."""
-    B = S * C
+def attention_shapes(B=S * C):
+    """(B, Tq, Tk, D, H, kind) of the attention launches of one planner
+    forward at batch B (an act call's S x C = 192 CBVs, or a fit step's
+    samples): the ego state encoder, the scene encoder and the decoder (the
+    HistoryEncoder's attention runs inside the stage kernel). Also the
+    shapes tools/kernel_ab.py times."""
     out = [(B, 1, 6, DIM, HEADS, "sep")]
     out += [(B, TOKENS, TOKENS, DIM, HEADS, "self")] * 4
     for _ in range(4):
@@ -123,6 +127,20 @@ def attention_shapes():
             (B, REFS * MODES, TOKENS, DIM, HEADS, "sep"),
         ]
     return out
+
+
+# attention shapes beside the main path's (B, Tq, Tk, D, H, kind): the
+# tails of the kernel's 16-row query and 16-key tiles, Tk at its limit of
+# 128, head dim 16, Tq = 300, past the 8 warps' 128 rows of one pass, and
+# short sequences four to a warp with a ragged last block and, at 15
+# (batch row, head) pairs, a warp with an empty slot
+ATTN_EDGES = [
+    (64, 1, 1, DIM, HEADS, "sep"), (64, 4, 6, DIM, HEADS, "sep"),
+    (64, 12, 97, DIM, HEADS, "kv"), (64, 48, 128, DIM, HEADS, "kv"),
+    (64, 97, 128, DIM, HEADS, "kv"), (64, 97, 97, 64, HEADS, "self"),
+    (16, 300, 33, DIM, HEADS, "kv"), (2101, 3, 2, DIM, HEADS, "sep"),
+    (5, 4, 4, 96, 3, "self"),
+]
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -138,6 +156,20 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters=20):
+    """Device ms of one call of `fn`, replayed from a CUDA graph: its
+    launches back to back, without the host's cost of making them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # off the capture: first-use set-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, iters)
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -146,7 +178,8 @@ def bound_ms(nbytes, flops, dtype):
 
 def attention_inputs(torch, gen, shape, dtype):
     """Inputs in the layout the model hands the kernel: self-attention q/k/v
-    are slices of one packed projection, m2m's q/k of a packed pair."""
+    are slices of one packed projection, m2m's q/k of a packed pair ("kv":
+    k/v of a packed pair)."""
     B, Tq, Tk, D, H, kind = shape
     dev = "cuda"
     rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
@@ -156,6 +189,9 @@ def attention_inputs(torch, gen, shape, dtype):
     elif kind == "qk":
         qk = rn(B, Tq, 2 * D)
         q, k, v = qk[..., :D], qk[..., D:], rn(B, Tk, D)
+    elif kind == "kv":
+        kv = rn(B, Tk, 2 * D)
+        q, k, v = rn(B, Tq, D), kv[..., :D], kv[..., D:]
     else:
         q, k, v = rn(B, Tq, D), rn(B, Tk, D), rn(B, Tk, D)
     bias = 0.5 * torch.randn(H, Tq, Tk, generator=gen, device=dev)
@@ -166,13 +202,13 @@ def attention_inputs(torch, gen, shape, dtype):
 
 
 def check_attention(torch, attention):
-    """Kernel vs plain version at each main-path shape family, f32 and
-    bf16; then times of one act call's 17 launches (bf16, as the model
-    runs them)."""
+    """Kernel vs plain version at each main-path shape family and at the
+    tile edges (ATTN_EDGES), f32 and bf16; then times of one act call's 17
+    launches (bf16, as the model runs them)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = attention_shapes()
     err = {"float32": 0.0, "bfloat16": 0.0}
-    for shape in sorted(set(shapes)):
+    for shape in sorted(set(shapes)) + ATTN_EDGES:
         for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             args = attention_inputs(torch, gen, shape, dtype)
             got = attention.fused_attention(*args, shape[4])
@@ -201,15 +237,29 @@ def check_attention(torch, attention):
         nbytes += (bias.numel() + kpad.numel()) * 4
         flops += 4 * B * Tq * Tk * D
     bound, by = bound_ms(nbytes, flops, "bfloat16")
+    kernel = lambda: [attention.fused_attention(*c) for c in calls]
+    plain = lambda: [attention.fused_attention_ref(*c) for c in calls]
+    library = lambda: [sdpa(q, k, v, attn_mask=m) for q, k, v, m in sdpa_in]
+    by_launch = {}
+    for c, shape in zip(calls, shapes):
+        key = "x".join(map(str, shape[:3]))
+        if key not in by_launch:
+            by_launch[key] = graph_ms(torch, lambda: attention.fused_attention(*c))
     return {
-        "ms": cuda_ms(torch, lambda: [attention.fused_attention(*c) for c in calls]),
-        "plain_ms": cuda_ms(torch, lambda: [attention.fused_attention_ref(*c) for c in calls]),
-        "library_ms": cuda_ms(torch, lambda: [sdpa(q, k, v, attn_mask=m) for q, k, v, m in sdpa_in]),
+        "ms": cuda_ms(torch, kernel),
+        "plain_ms": cuda_ms(torch, plain),
+        "library_ms": cuda_ms(torch, library),
         "bound_ms": bound,
         "bound_by": by,
         "max_abs_err": err["float32"],
         "max_abs_err_bf16": err["bfloat16"],
-        "timed_work": f"the {len(calls)} launches of one act call at S={S}, bf16",
+        "timed_work": f"the {len(calls)} launches of one act call at S={S}, bf16, launched "
+                      "from Python (ms) and replayed from a CUDA graph (device_ms: device "
+                      "time, without the host's cost of the launches)",
+        "device_ms": graph_ms(torch, kernel),
+        "device_plain_ms": graph_ms(torch, plain),
+        "device_library_ms": graph_ms(torch, library),
+        "device_ms_by_launch": by_launch,
     }
 
 
@@ -772,7 +822,8 @@ def closed_loop(torch, tmap, counters, plain_versions, kernel_versions):
     from rift_tpu_torch.runner import Runner, RunnerConfig
 
     t0 = time.perf_counter()
-    cfg = RunnerConfig(num_scenarios=S, num_agents=A, max_cbvs=C, max_episode_ticks=2 * CHUNK)
+    cfg = RunnerConfig(num_scenarios=S, num_agents=A, max_cbvs=C, max_episode_ticks=2 * CHUNK,
+                       canonical=True)
     runner = Runner(tmap, cfg)
     acts = cfg.max_episode_ticks
     out, launches = {}, {}
@@ -921,7 +972,8 @@ def zoo_and_cli(torch, tmap, counters, scene):
     t0 = time.perf_counter()
     out, launches = {"zoo": {}}, {}
     state, spec = scene
-    pols = {k: policies.CBV_POLICY_LIST[k](tmap, {"buffer_capacity": ZOO_BUFFER})
+    pols = {k: policies.CBV_POLICY_LIST[k](tmap, {"buffer_capacity": ZOO_BUFFER,
+                                                   "canonical_tokens": True})
             for k in FINE_TUNED}
     src = pols["rift_pluto"]
     _, _, extras = rollout_chunk(src.model, tmap, spec, state, init_criteria(S, A, "cuda"),
@@ -957,7 +1009,7 @@ def zoo_and_cli(torch, tmap, counters, scene):
     shutil.rmtree(cli_dir, ignore_errors=True)
     common = ["--ego_cfg", "behavior", "--cbv_cfg", "rift_pluto", "--num_scenario", str(S),
               "--num_agents", str(A), "--blocks", "2", "--max_ticks", str(2 * CHUNK),
-              "--out_dir", cli_dir]
+              "--out_dir", cli_dir, "canonical_tokens=true"]
     pre = os.path.join(cli_dir, "pretrain.npz")
     zero_launches(counters)
     t1 = time.perf_counter()

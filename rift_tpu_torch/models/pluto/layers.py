@@ -261,14 +261,25 @@ class TransformerEncoderLayer(nn.Module):
 def history_forward(W, x, dtype=None):
     """HistoryEncoder forward over the flat param dict `W` (port of
     rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode), x
-    [N, 20, 9] -> [N, 128] in `dtype`. When no gradient has to flow through
-    it (grad mode off, or neither x nor any weight requires grad), the
-    whole encoder runs in one launch of ops/history.py:history_encoder (the
-    CUDA kernel on the card), in f32 whatever `dtype`, as the JAX package's
-    kernel route casts (layers.py:657-663). Otherwise each level's two
-    LocalBlocks go through the differentiable fused stage
-    (ops/history.py:local_stage) in f32, as the JAX package's stage branch
-    casts, and the rest computes in `dtype`."""
+    [N, 20, 9] -> [N, 128] in `dtype`.
+
+    The JAX package's live path is `history_forward_jnp` in the compute
+    dtype: bf16 convolutions and matmuls with LayerNorm statistics in f32
+    (its whole-encoder kernel route is off, layers.py:651, and its stage
+    branch is gated off, layers.py:461-470). The port deliberately runs
+    the encoder in f32 whatever `dtype` and rounds the result once: at
+    bf16 that is JAX's f32 encoder within one bf16 rounding, and a bf16
+    encoder would come no closer to JAX's bf16 one, since bf16
+    intermediates rounded in another order scatter as far (the gaps are
+    measured in tests/test_torch_history_encoder.py); f32 also keeps one
+    arithmetic for the kernels and their plain versions. When no gradient
+    has to flow through it (grad mode off, or neither x nor any weight
+    requires grad), the whole encoder runs in one launch of
+    ops/history.py:history_encoder (the CUDA kernel on the card) in f32.
+    Otherwise (the fits that train the encoder, `bc_pluto`) each level's
+    two LocalBlocks go through the differentiable fused stage
+    (ops/history.py:local_stage) in f32 and the convolutions, norms and
+    FPN compute in `dtype`: at bf16 a mix that neither JAX path runs."""
     dt = dtype or torch.float32
     if torch.is_grad_enabled() and (
         x.requires_grad or any(w.requires_grad for w in W.values())

@@ -39,6 +39,15 @@ def _wrap(a):
     return (a + math.pi) % (2 * math.pi) - math.pi
 
 
+# what a caller that does not choose canonical tokens is told
+CANONICAL_ONLY = (
+    "rift_tpu_torch runs Pluto on canonical tokens only: the legacy per-CBV "
+    "token branch, the JAX package's default, is not ported yet (ROADMAP.md "
+    "section 1, the legacy per-CBV feature branch). Choose canonical tokens "
+    "with the override canonical_tokens=true (RunnerConfig(canonical=True))"
+)
+
+
 def _legacy(what):
     return NotImplementedError(
         f"{what}: only the canonical token path is ported so far"

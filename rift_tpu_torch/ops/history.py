@@ -129,12 +129,18 @@ def layer_norm(x, scale, bias, dt):
 
 def encoder_forward(W, x, stage, dt=torch.float32):
     """The HistoryEncoder step by step over the flat param dict `W`
-    (rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode, with
-    its stage branch): the conv tokenizer; each level's two LocalBlocks
-    through `stage` (local_stage or local_stage_ref) in f32; a level LN,
-    then a stride-2 conv and an LN between levels; the lateral convs, the
-    FPN top-down fusion through `resize_matrix`, the final conv; the last
-    token. The rest computes in `dt`. x [N, T, C] -> [N, 4*embed]."""
+    (rift_tpu/models/pluto/layers.py:history_forward_jnp, eval mode, laid
+    out as its stage branch, which the JAX package gates off): the conv
+    tokenizer; each level's two LocalBlocks through `stage` (local_stage
+    or local_stage_ref) in f32; a level LN, then a stride-2 conv and an LN
+    between levels; the lateral convs, the FPN top-down fusion through
+    `resize_matrix`, the final conv; the last token. The rest computes in
+    `dt`: f32 for the whole-encoder kernel's plain version; the compute
+    dtype on the route of the fits that train the encoder (`bc_pluto`),
+    where at bf16 the f32 stages sit between bf16 convolutions, a mix that
+    neither of the JAX package's paths runs (its live path,
+    history_forward_jnp, computes everything in the compute dtype).
+    x [N, T, C] -> [N, 4*embed]."""
     x = conv3(x, W["conv0_w"], W["conv0_b"], dt=dt)
     outs = []
     levels = len(DEPTHS)

@@ -8,8 +8,9 @@ and an explicit `torch.Generator`. The fine-tuned Pluto variants share
 one rollout driver (models/pluto/policy.py:pluto_cbv_act) and differ in
 the loss their `train_round` hands to rl.trainer.fit and in the
 parameters it trains. The port runs Pluto on canonical tokens only (the
-JAX package's `canonical_tokens=True`); the per-CBV feature branch is
-still to come.
+JAX package's `canonical_tokens=True`); the per-CBV feature branch, the
+JAX package's default, is still to come, so a Pluto config must choose
+canonical tokens (`canonical_tokens=true`) or it is refused.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+from .models.pluto import CANONICAL_ONLY, PlutoModel, canonical_map_tokens, pluto_cbv_act
 from .rl import (
     TrainConfig,
     fit,
@@ -97,10 +98,8 @@ class PlutoPolicy:
 
     def __init__(self, tmap, cfg=None, encoder_depth=4, decoder_depth=4, seed=0):
         cfg = cfg or {}
-        if cfg.get("canonical_tokens", True) is False:
-            raise NotImplementedError(
-                "rift_tpu_torch runs Pluto on canonical tokens only (ROADMAP.md)"
-            )
+        if not cfg.get("canonical_tokens", False):  # the JAX package's default
+            raise NotImplementedError(CANONICAL_ONLY)
         self.tmap = tmap
         self.max_cbvs = cfg.get("max_cbvs", 3)
         seed = cfg.get("seed", seed)

@@ -13,8 +13,9 @@ that rule recognition has promoted CBVs), then trace the env step alone
 eval tick (the act, then the env step).
 Prints one JSON line: host wall time per call, device kernel time per call,
 the device's idle share, the number of kernel launches per call, the
-launches per call of each hand-written kernel (its wrapper's counter),
-and the kernels that take the most device time. Run from the repository root (it
+launches per call of each hand-written kernel (its wrapper's counter) and
+its device time per call (all its template instances together), and the
+kernels that take the most device time. Run from the repository root (it
 reuses chip_smoke's scene set-up).
 """
 
@@ -26,6 +27,14 @@ import sys
 import time
 
 import torch
+
+
+# each hand-written kernel's __global__ function in csrc/
+HAND_KERNELS = {
+    "fused_attention": "attention_kernel", "points_encoder": "points_kernel",
+    "retrack_rollout": "retrack_kernel", "refline_matrices": "refline_kernel",
+    "local_stage": "stage_kernel", "history_encoder": "encoder_kernel",
+}
 
 
 def main() -> int:
@@ -107,6 +116,11 @@ def main() -> int:
         rec[0] += dev_us(e) / 1e3
         rec[1] += 1
     device_ms = sum(v[0] for v in by_name.values()) / args.steps
+    hand_ms = {
+        name: sum(dev_us(e) for e in kernels if f"{symbol}<" in e.name or
+                  f"{symbol}(" in e.name) / 1e3 / args.steps
+        for name, symbol in HAND_KERNELS.items()
+    }
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     print(json.dumps({
         "profile_act": {
@@ -120,6 +134,7 @@ def main() -> int:
             "idle_share": 1.0 - device_ms / wall_ms if kernels else "not measured",
             "launches_per_call": len(kernels) / args.steps,
             "hand_kernel_launches_per_call": hand,
+            "hand_kernel_ms_per_call": hand_ms if kernels else "not measured",
             "top_kernels_ms_per_call": {
                 name: round(ms / args.steps, 4) for name, (ms, _) in top
             },

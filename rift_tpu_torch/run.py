@@ -6,7 +6,12 @@ the modes `eval` and `train_cbv` on the synthetic towns).
              weights drive the next ticks
 
     python -m rift_tpu_torch.run --mode train_cbv --ego_cfg behavior \\
-        --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid
+        --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid \\
+        canonical_tokens=true
+
+The Pluto keys need the override `canonical_tokens=true`: the port runs
+canonical tokens only and refuses the JAX package's default, the legacy
+per-CBV tokens.
 
 Ticks run in chunks of FUSED_CHUNK through rollout.rollout_chunk, with the
 rule ego. Everything runs on CUDA unless `--device cpu`. Not ported yet

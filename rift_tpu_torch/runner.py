@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import torch
 
 from .map.tensor_map import TensorMap
-from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
+from .models.pluto import CANONICAL_ONLY, PlutoModel, canonical_map_tokens, pluto_cbv_act
 from .rl import TrainConfig, fit, rift_loss_fn, ring_reset
 from .rollout import flush_pending, rollout_chunk, store_chunk, tick_extras
 from .scenario import TrafficEnv
@@ -34,11 +34,16 @@ class RunnerConfig:
     seed: int = 0
     encoder_depth: int = 4
     decoder_depth: int = 4
+    # frame-invariant token mode, as the JAX RunnerConfig's; the port runs
+    # only this mode, so the default (the legacy per-CBV tokens) is refused
+    canonical: bool = False
 
 
 class Runner:
     def __init__(self, tmap: TensorMap, cfg: RunnerConfig | None = None, device=None):
         self.cfg = cfg or RunnerConfig()
+        if not self.cfg.canonical:
+            raise NotImplementedError(CANONICAL_ONLY)
         self.device = resolve_device(device)
         self.tmap = tmap
         self.env = TrafficEnv(

@@ -49,7 +49,7 @@ def test_run_train_cbv_then_eval_resume(tmp_path, capsys):
     out = str(tmp_path / "log")
     common = ["--ego_cfg", "behavior", "--cbv_cfg", "rift_pluto", "--device", "cpu",
               "--num_scenario", "2", "--num_agents", "10", "--out_dir", out,
-              "encoder_depth=1", "decoder_depth=1"]
+              "encoder_depth=1", "decoder_depth=1", "canonical_tokens=true"]
     pre = str(tmp_path / "pretrain.npz")
     g = run.main(["--mode", "train_cbv", "--num_episodes", "1", "--max_ticks", "40",
                   "--blocks", "1", "--save_pretrain", pre, *common, "buffer_capacity=8",

@@ -2,8 +2,9 @@
 `test_torch_world.py`'s scene (S=2, A=10, C=2, two CBVs per scenario on
 given trajectories): `scenario.env_step` (rule ego, IDM autopilot, world
 tick, criteria, churn) for five ticks; rule recognition across its warm-up
-boundary (tick 25, then every 2 ticks), and `recognize_cbvs` alone; and,
-as the world part of the slice as a whole, the world-only `rollout_chunk`
+boundary (tick 25, then every 2 ticks), and `recognize_cbvs` alone; a
+reset with walkers and static obstacles and five ticks of them; and, as
+the world part of the slice as a whole, the world-only `rollout_chunk`
 (K=5) against five JAX `env_step`s, its scan's body.
 
 Every JAX env step here gets [S, A, 80, 2] trajectories (all-False masks
@@ -22,11 +23,13 @@ import pytest
 import torch
 
 from rift_tpu.scenario import TrafficEnv as JaxTrafficEnv
+from rift_tpu.scenario import wake_all_bvs as jax_wake
 from rift_tpu.scenario.env import env_step as jax_env_step
 from rift_tpu.scenario.recognition import RECOG_WARMUP_TICKS
 from rift_tpu.scenario.recognition import recognize_cbvs as jax_recognize
 from rift_tpu_torch.rollout import rollout_chunk
-from rift_tpu_torch.scenario import env_step, recognize_cbvs
+from rift_tpu_torch.scenario import TrafficEnv, env_step, recognize_cbvs
+from rift_tpu_torch.sim.state import CLASS_STATIC, CLASS_WALKER
 from test_torch_world import A, C, S, TOL, jax_scene
 from torch_parity import (
     assert_fields_match,
@@ -102,6 +105,43 @@ def test_recognition_across_warmup(scene):
     assert np.asarray(ref[4]).any()
     for name, r, g in zip(("is_cbv", "goal", "goal_valid", "interaction", "promote"), ref, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def test_walkers_and_statics_match(scene):
+    """A reset with 2 walkers and 2 static obstacles per scenario (the JAX
+    CLI's eval defaults, rift_tpu/run.py:402-409) from one seed in both
+    packages, then five env ticks with every pooled BV awake and no
+    trajectory: the spawn of the last slots, the walkers' patrol, the
+    autopilot's yield to walkers, and the pedestrian and static collision
+    counts of the criteria. Ints and bools exactly, floats 1e-4."""
+    kw = dict(num_scenarios=S, num_agents=A, max_cbvs=C, seed=5, num_walkers=2, num_statics=2)
+    jstate, jcrit, jspec = JaxTrafficEnv(scene["jmap"], **kw).reset()
+    state, crit, spec = TrafficEnv(scene["tmap"], device="cpu", **kw).reset()
+    assert_fields_match(jstate, state, atol=0.0, rtol=0.0)
+    assert_fields_match(jcrit, crit, atol=0.0, rtol=0.0)
+    cls = state.agent_class.numpy()
+    assert ((cls == CLASS_WALKER).sum(1) == 2).all() and ((cls == CLASS_STATIC).sum(1) == 2).all()
+
+    jstate = jax_wake(jstate)
+    state = state_from_jax(jstate)
+    spec = spec_from_jax(jspec)
+    start = state.pos.clone()
+    traj = np.zeros_like(scene["traj"])
+    jtraj, jmask = jnp.asarray(traj), jnp.zeros((S, A), bool)
+    ttraj, tmask = torch.from_numpy(traj), torch.zeros((S, A), dtype=torch.bool)
+    for k in range(5):
+        jstate, jcrit = jax_env_step(
+            scene["jmap"], jspec, jstate, jcrit, cbv_traj=jtraj, cbv_traj_mask=jmask, max_cbvs=C
+        )
+        state, crit = env_step(
+            scene["tmap"], spec, state, crit, cbv_traj=ttraj, cbv_traj_mask=tmask,
+            max_cbvs=C, tick=k,
+        )
+    assert_fields_match(jstate, state, atol=1e-4, rtol=1e-4)
+    assert_fields_match(jcrit, crit, atol=1e-4, rtol=1e-4)
+    moved = (state.pos - start).norm(dim=-1)
+    assert (moved[torch.from_numpy(cls == CLASS_WALKER)] > 0.0).all()  # the patrol walks
+    assert (moved[torch.from_numpy(cls == CLASS_STATIC)] == 0.0).all()
 
 
 def test_world_only_rollout_matches(scene):

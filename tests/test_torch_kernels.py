@@ -6,10 +6,12 @@ neither), so they run there without the JAX test configuration:
 
 Without a CUDA device every test here but the replay's own check skips.
 Tolerances: f32 attention
-1e-5, summation order only; PointNet atol 2e-4 as the JAX package's own
-kernel test (a 512-deep f32 product chain; without the layer norms the
-outputs reach ~10^3, hence also rtol 1e-5); bf16 attention 2e-2 (the
-weights are rounded to bf16 before the AV product). Retrack: each step of
+1e-5 (3xTF32 products on the tensor cores, f32-accurate, summed in
+another order), at the main path's shapes and at every tile edge;
+PointNet atol 2e-4 as the JAX package's own kernel test (a 512-deep
+f32 product chain; without the layer norms the outputs reach ~10^3,
+hence also rtol 1e-5); bf16 attention 2e-2 (the weights are rounded to
+bf16 before the AV product). Retrack: each step of
 the kernel's rollout, replayed through the plain version, within 1e-4
 away from near-ties (the two sum the PID windows and the speed
 polynomials in another order, so a threshold met on one side only sends
@@ -63,6 +65,45 @@ def test_attention_kernel_matches_plain(cuda_device, case, dtype):
         got.float(), fused_attention_ref(q, k, v, bias, kpad, H).float(),
         atol=atol, rtol=0,
     )
+
+
+# the attention kernel's tile edges: (B, Tq, Tk, D, H, layout). Query
+# tiles are 16 rows and key tiles 16 keys, so Tq and Tk cross them
+# (Tq = 300 takes the loop of 8 warps over 19 tiles); "packed" slices q, k
+# and v out of one [B, T, 3D] projection (Tq = Tk), "kv" k and v out of one
+# [B, Tk, 2D]; D/H = 15 and 12 take the element-wise staging; sequences of
+# <= 4 tokens go four to a warp's 16 rows, at B = 2101 (8404 heads) with a
+# ragged last block and at 5 x 3 heads with an empty slot in the last warp
+ATTN_EDGES = [
+    (5, 1, 1, 128, 4, "sep"), (5, 1, 6, 128, 4, "sep"), (7, 4, 4, 128, 4, "packed"),
+    (6, 12, 12, 64, 4, "packed"), (3, 12, 97, 128, 4, "kv"), (3, 48, 97, 128, 4, "kv"),
+    (2, 48, 128, 128, 4, "kv"), (3, 97, 97, 128, 4, "packed"), (2, 97, 128, 64, 4, "kv"),
+    (2, 300, 33, 128, 4, "kv"), (3, 17, 23, 60, 4, "sep"), (3, 20, 20, 48, 4, "packed"),
+    (2101, 4, 4, 128, 4, "packed"), (2101, 3, 2, 128, 4, "sep"), (5, 4, 4, 96, 3, "packed"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_EDGES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_kernel_tile_edges(cuda_device, case, dtype):
+    """Every row tail and key tail, strided slices of packed projections,
+    a fully masked row (batch row 0), in f32 (1e-5) and bf16 (2e-2)."""
+    B, Tq, Tk, D, H, layout = case
+    q, k, v, bias, kpad = (torch.from_numpy(a).to(cuda_device)
+                           for a in attn_inputs(B, Tq, Tk, D, H, seed=3))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if layout == "packed":
+        q, k, v = torch.cat([q, k, v], -1).split(D, -1)
+    elif layout == "kv":
+        k, v = torch.cat([k, v], -1).split(D, -1)
+    assert layout == "sep" or k.stride(1) > D
+    got = fused_attention(q, k, v, bias, kpad, H)
+    torch.cuda.synchronize()
+    ref = fused_attention_ref(q, k, v, bias, kpad, H)
+    assert torch.isfinite(got).all()
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
 
 
 @pytest.mark.cuda

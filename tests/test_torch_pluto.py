@@ -326,7 +326,8 @@ def test_pretrain_npz_moves_between_packages(world, tmp_path):
         np.testing.assert_array_equal(np.asarray(v), np.asarray(want[k]), err_msg=k)
 
     pol = CBV_POLICY_LIST["ppo_pluto"](world["tmap"], {"encoder_depth": DEPTH,
-                                                       "decoder_depth": DEPTH})
+                                                       "decoder_depth": DEPTH,
+                                                       "canonical_tokens": True})
     head = {n: p.detach().clone() for n, p in pol.model.value_head.named_parameters()}
     jpath = str(tmp_path / "jax.npz")
     save_params_npz(world["params"], jpath)

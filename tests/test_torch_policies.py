@@ -12,6 +12,7 @@ are the JAX policies'. (The pretrain npz round trip between the packages
 is in test_torch_pluto.py, on its seeded model.)
 """
 
+import dataclasses
 import types
 
 import jax
@@ -21,13 +22,18 @@ import pytest
 import torch
 
 from rift_tpu import policies as jpolicies
+from rift_tpu.runner import RunnerConfig as JaxRunnerConfig
 from rift_tpu_torch import policies
+from rift_tpu_torch.runner import Runner, RunnerConfig
+from rift_tpu_torch.utils.config import apply_overrides, load_config
 from torch_parity import one_torch_thread
 
 BS, R, M, F, P = 6, 3, 4, 80, 5
 FINE_TUNED = ("rift_pluto", "grpo_pluto", "reinforce_pluto", "rs_pluto", "sft_pluto",
               "bc_pluto", "rtr_pluto", "ppo_pluto")
 CPU_MAP = types.SimpleNamespace(device=torch.device("cpu"))  # what a policy reads
+SMALL = {"encoder_depth": 1, "decoder_depth": 1}
+CANONICAL_SMALL = {**SMALL, "canonical_tokens": True}
 
 
 def _given(seed=0):
@@ -78,7 +84,7 @@ def test_loss_fn_matches_jax(key):
     jloss, jgrad = jax.jit(jax.value_and_grad(lambda o: jpol._loss_fn(o, jbatch, None)))(
         _tree(out, jnp.asarray))
 
-    pol = policies.CBV_POLICY_LIST[key](CPU_MAP, {"encoder_depth": 1, "decoder_depth": 1})
+    pol = policies.CBV_POLICY_LIST[key](CPU_MAP, CANONICAL_SMALL)
     touts = {k: torch.from_numpy(np.asarray(v)).requires_grad_(True) for k, v in out.items()}
     pol.ref_model = lambda features: _tree(ref, torch.from_numpy)
     loss = pol._loss_fn(lambda features: dict(touts), _tree(batch, torch.from_numpy))
@@ -110,11 +116,32 @@ def test_teacher_label_and_registry():
     with pytest.raises(KeyError, match="behavior"):
         policies.EGO_POLICY_LIST["pdm_lite"]
     for key in ("pluto", "rift_pluto", "ppo_pluto", "bc_pluto"):
-        trainable = policies.CBV_POLICY_LIST[key](CPU_MAP, {"encoder_depth": 1,
-                                                            "decoder_depth": 1})
+        trainable = policies.CBV_POLICY_LIST[key](CPU_MAP, CANONICAL_SMALL)
         jtrain = jpolicies.CBV_POLICY_LIST[key](None, {})
         if key != "pluto":
             assert trainable.train_cfg.trainable_prefixes == jtrain.train_cfg.trainable_prefixes
             assert trainable.train_cfg.lr == jtrain.train_cfg.lr
             assert trainable.train_cfg.grad_clip == jtrain.train_cfg.grad_clip
         assert trainable.execute_teacher == jtrain.execute_teacher
+
+
+def test_pluto_refuses_the_legacy_token_default():
+    """The JAX package runs Pluto on legacy per-CBV tokens unless a config
+    sets `canonical_tokens` (policies.py) or the Runner's `canonical`; the
+    port has only canonical tokens, so it refuses both defaults, naming
+    the override, instead of running another convention than the JAX CLI
+    would. With the override a policy builds."""
+    assert jpolicies.CBV_POLICY_LIST["rift_pluto"](None, {}).canonical is False
+    assert "canonical_tokens" not in load_config("rift_pluto")
+    for cfg in (load_config("rift_pluto"), {"canonical_tokens": False}):
+        with pytest.raises(NotImplementedError, match="canonical_tokens=true"):
+            policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**cfg, **SMALL})
+    cfg = apply_overrides(load_config("rift_pluto"), ["canonical_tokens=true"])
+    pol = policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**cfg, **SMALL})
+    assert pol.trainable and cfg["canonical_tokens"] is True
+
+    assert RunnerConfig().canonical is JaxRunnerConfig().canonical is False
+    assert {f.name for f in dataclasses.fields(RunnerConfig)} <= {
+        f.name for f in dataclasses.fields(JaxRunnerConfig)}
+    with pytest.raises(NotImplementedError, match="canonical_tokens=true"):
+        Runner(None, RunnerConfig(), device="cpu")

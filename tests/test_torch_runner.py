@@ -192,7 +192,7 @@ def test_runner_eval_and_train_cbv(maps):
     _, tmap = maps
     cfg = RunnerConfig(
         num_scenarios=S, num_agents=10, max_cbvs=C, max_episode_ticks=30, buffer_capacity=4,
-        encoder_depth=1, decoder_depth=1,
+        encoder_depth=1, decoder_depth=1, canonical=True,
         # two steps of one sample batch each: the first at lr 0 (warm-up)
         train=TrainConfig(epochs=2, warmup_epochs=1, batch_size=4),
     )

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Times the PointNet and whole-HistoryEncoder CUDA kernels of two checkouts
-of this repository on one card, in turns: baseline, this tree, this tree,
-baseline.
+"""Times the attention, PointNet and whole-HistoryEncoder CUDA kernels of
+two checkouts of this repository on one card, in turns: baseline, this
+tree, this tree, baseline.
 
     git archive HEAD~1 | (mkdir -p build/baseline && tar -x -C build/baseline)
     python3 tools/kernel_ab.py --baseline build/baseline
 
 Each turn is a fresh process whose `rift_tpu_torch` is the checkout's own
 (PYTHONPATH), so each builds and launches its own kernels behind the same
-Python entry points (`points_encoder`, `history_encoder`). The inputs are
-made on the card from fixed seeds, the same in every turn: the PointNet at
+Python entry points (`fused_attention`, `points_encoder`,
+`history_encoder`). The inputs are made on the card from fixed seeds, the
+same in every turn: the attention at the 17 launches of one planner
+forward in bf16 (chip_smoke.py's `attention_shapes` and
+`attention_inputs`, read from this tree for both turns) at the act's 192
+CBVs, a fit step's batch 256, and 12 and 48 CBVs (4 and 16 scenarios of
+3 CBVs), launched from Python (`ms`) and replayed from a CUDA graph
+(`device_ms`, also per launch shape); the PointNet at
 the act's reference-line launch (N=768 rows of P=120 points, C=6, a random
 valid prefix per row) and at the fit's map-row launch (N=16384, P=20, C=10,
 every point valid); the whole encoder at the act's N=1536 and the fit's
@@ -25,6 +31,7 @@ number per turn, the card's name and power limit. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
@@ -34,21 +41,33 @@ import time
 from pathlib import Path
 
 DIM = 128
+ATTENTION_BATCH = {"attention_act": 192, "attention_fit": 256, "attention_12": 12,
+                   "attention_48": 48}
 POINT_SHAPES = {"points_act": (768, 120, 6, True), "points_fit": (16384, 20, 10, False)}
 ENCODER_SHAPES = {"encoder_act": 1536, "encoder_fit": 8192}
 
 
-def cuda_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _chip_smoke():
+    """This tree's chip_smoke.py, loaded by path: the one home of the
+    attention shapes and of the timers. (sys.path is left alone, so that
+    `rift_tpu_torch` stays the turn's own checkout.)"""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+smoke = _chip_smoke()
+cuda_ms, graph_ms = smoke.cuda_ms, smoke.graph_ms
+
+
+def attention_calls(torch, seed, B):
+    """The 17 attention launches of one planner forward at batch B, bf16:
+    (q, k, v, bias, kpad, heads) each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [smoke.attention_inputs(torch, gen, s, torch.bfloat16) + (s[4],)
+            for s in smoke.attention_shapes(B)]
 
 
 def points_inputs(torch, seed, N, P, C, prefix):
@@ -131,9 +150,22 @@ def turn() -> dict:
     """Time and check this process's kernels, then the steps."""
     import torch
     import rift_tpu_torch
-    from rift_tpu_torch.ops import history, points
+    from rift_tpu_torch.ops import attention, history, points
 
     out = {"package": str(Path(rift_tpu_torch.__file__).resolve().parent.parent)}
+    for name, B in ATTENTION_BATCH.items():
+        calls = attention_calls(torch, 0, B)
+        err = max((attention.fused_attention(*c).float()
+                   - attention.fused_attention_ref(*c).float()).abs().max().item()
+                  for c in calls)
+        kernel = lambda: [attention.fused_attention(*c) for c in calls]
+        by_launch = {}
+        for c in calls:
+            key = "x".join(map(str, (c[0].shape[0], c[0].shape[1], c[1].shape[1])))
+            if key not in by_launch:
+                by_launch[key] = graph_ms(torch, lambda: attention.fused_attention(*c))
+        out[name] = {"ms": cuda_ms(torch, kernel), "device_ms": graph_ms(torch, kernel),
+                     "device_ms_by_launch": by_launch, "max_abs_err": err}
     for name, (N, P, C, prefix) in POINT_SHAPES.items():
         x, mask, w = points_inputs(torch, 1, N, P, C, prefix)
         got = points.points_encoder(x, mask, w, DIM)
@@ -188,8 +220,12 @@ def main() -> int:
         print(json.dumps(r))
         turns.append(r)
     summary = {"card": card}
-    for name in (*POINT_SHAPES, *ENCODER_SHAPES, "eval_act_step", "fit_step"):
+    for name in (*ATTENTION_BATCH, *POINT_SHAPES, *ENCODER_SHAPES, "eval_act_step",
+                 "fit_step"):
         summary[name] = {"ms_by_turn": [(t["label"], t[name]["ms"]) for t in turns]}
+        for key in ("device_ms", "device_ms_by_launch"):
+            if key in turns[0][name]:
+                summary[name][f"{key}_by_turn"] = [(t["label"], t[name][key]) for t in turns]
         if "max_abs_err" in turns[0][name]:
             summary[name]["max_abs_err"] = max(t[name]["max_abs_err"] for t in turns)
     print(card)
