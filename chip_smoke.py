@@ -23,8 +23,9 @@ Phases (any failure raises and exits non-zero):
      1e-4); time kernel, plain version and, where one PyTorch call
      computes the same function, that call (scaled_dot_product_attention,
      nn.TransformerEncoder; timed only, the port never calls them; the
-     attention's 17 launches of a few µs each launched from Python and,
-     as device time, replayed from a CUDA graph), with the PointNet
+     attention's 17 launches of a few µs each, the retrack and the
+     refline launch launched from Python and, as device time, replayed
+     from a CUDA graph), with the PointNet
      and the whole encoder timed at the fit's shape too; then
      the gradients through the attention, PointNet and stage autograd
      Functions against the plain versions' gradients (f32, atol 1e-4);
@@ -384,8 +385,9 @@ def check_retrack(torch, retrack):
     nbytes = 4 * (G * T * 2 + 2 * G + G * T * 4)  # path, start heading and speed; outputs
     flops = G * (T - 1) * (5 * T + 150)
     bound, by = bound_ms(nbytes, flops, "float32")
+    kernel = lambda: retrack.retrack_rollout(pos, yaw, v0)
     return {
-        "ms": cuda_ms(torch, lambda: retrack.retrack_rollout(pos, yaw, v0)),
+        "ms": cuda_ms(torch, kernel),
         "plain_ms": cuda_ms(torch, lambda: retrack.retrack_rollout_ref(pos, yaw, v0), iters=3),
         "library_ms": None,
         "bound_ms": bound,
@@ -394,7 +396,9 @@ def check_retrack(torch, retrack):
         "max_abs_err_center_heading_speed": errs,
         "diverged_share": share,
         "diverged_max_err": err.max().item(),
-        "timed_work": f"one launch, G={G} candidates, T={T}, f32",
+        "timed_work": f"one launch, G={G} candidates, T={T}, f32, launched from Python (ms) "
+                      "and replayed from a CUDA graph (device_ms)",
+        "device_ms": graph_ms(torch, kernel),
     }
 
 
@@ -437,15 +441,18 @@ def check_refline(torch, refline):
     nbytes = 4 * (BR * MT * 3 + BR * POINTS * 3 + 2 * BR * MT) + BR * POINTS
     flops = 5 * MT * valid_pts  # the search over this run's valid points
     bound, by = bound_ms(nbytes, flops, "float32")
+    kernel = lambda: refline.refline_matrices(*args)
     return {
-        "ms": cuda_ms(torch, lambda: refline.refline_matrices(*args)),
+        "ms": cuda_ms(torch, kernel),
         "plain_ms": cuda_ms(torch, lambda: refline.refline_matrices_ref(*args)),
         "library_ms": None,
         "bound_ms": bound,
         "bound_by": by,
         "max_abs_err": err,
         "flipped_share": flips,
-        "timed_work": f"one launch, BR={BR} pairs, MT={MT}, Nr={POINTS}, f32",
+        "timed_work": f"one launch, BR={BR} pairs, MT={MT}, Nr={POINTS}, f32, launched from "
+                      "Python (ms) and replayed from a CUDA graph (device_ms)",
+        "device_ms": graph_ms(torch, kernel),
     }
 
 

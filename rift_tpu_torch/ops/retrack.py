@@ -15,6 +15,7 @@ at launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,8 +53,11 @@ def retrack_rollout_ref(ref_pos, init_heading, init_speed, dt: float = 0.1):
     return center, head, spd
 
 
+@functools.lru_cache(maxsize=None)
 def _constants(dt: float):
-    """The kernel's constants, in the order of csrc/retrack.cu's enum."""
+    """The kernel's constants, in the order of csrc/retrack.cu's enum: one
+    ctypes array per dt, built on first use (the kernel copies it at each
+    launch)."""
     d = dynamics
     vals = (
         dt,

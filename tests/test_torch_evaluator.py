@@ -49,6 +49,7 @@ from rift_tpu.sim.world import autopilot_steady_speed as jax_steady_speed
 from rift_tpu_torch.geometry.obb import _axes_from_heading, box_corners, obb_overlap
 from rift_tpu_torch.map import make_straight_town
 from rift_tpu_torch.ops.refline import refline_matrices_ref
+from rift_tpu_torch.ops.retrack import retrack_rollout_ref
 from rift_tpu_torch.rl import evaluator as tev
 from rift_tpu_torch.sim.autopilot import lane_follow_waypoints
 from rift_tpu_torch.sim.dynamics import bicycle_step
@@ -229,6 +230,90 @@ def test_rollout_candidates_matches_jax():
     ref = jev.rollout_candidates(*map(jnp.asarray, short), jnp.asarray(v0), num_frames=n)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-3)
+
+
+def _retrack_tie_case(Tn):
+    """Candidates whose closest-point search meets exact ties, the cases
+    the kernel's split search must resolve as the serial one does: paths
+    that stand still (every point the same, so every distance is equal and
+    the first index wins), from rest and from a start speed, and paths
+    that double back on themselves (out and back over the same points, so
+    each outbound point ties with its return twin)."""
+    rng = np.random.default_rng(8)
+    G = 8
+    t = np.arange(Tn, dtype=np.float32)
+    ref_pos = np.zeros((G, Tn, 2), np.float32)
+    ref_pos[:4] = rng.uniform(-50, 50, (4, 1, 2))
+    s = np.minimum(t, Tn - 1 - t)  # 0, 1, ..., 1, 0: the same floats out and back
+    for g in range(4, G):
+        yaw = rng.uniform(-np.pi, np.pi)
+        step = rng.uniform(0.3, 1.5) * np.array([np.cos(yaw), np.sin(yaw)], np.float32)
+        ref_pos[g] = rng.uniform(-50, 50, 2) + s[:, None] * step
+    ref_heading = np.repeat(rng.uniform(-np.pi, np.pi, (G, 1)), Tn, 1).astype(np.float32)
+    v0 = np.array([0.0, 0.5, 3.0, 8.0, 0.0, 2.0, 5.0, 10.0], np.float32)
+    return ref_pos, ref_heading, v0
+
+
+@pytest.mark.parametrize("Tn", [12, jev.NUM_FRAMES])
+def test_retrack_ties_match_jax(Tn):
+    """The plain re-tracking on standing-still and doubled-back candidates
+    against the Pallas kernel in interpret mode and, over the 12-frame
+    horizon, the lax.scan, at test_evaluator.py's 2e-3."""
+    ref_pos, ref_heading, v0 = _retrack_tie_case(Tn)
+    got = retrack_rollout_ref(T(ref_pos), T(ref_heading[:, 0]), T(v0))
+    refs = [retrack_rollout_pallas(*map(jnp.asarray, (ref_pos, ref_heading, v0)), Tn,
+                                   interpret=True)]
+    if Tn == 12:
+        refs.append(jev.rollout_candidates(*map(jnp.asarray, (ref_pos, ref_heading, v0)),
+                                           num_frames=Tn))
+    for ref in refs:
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-3)
+    # the standing-still candidate from rest never moves
+    np.testing.assert_array_equal(got[0][0].numpy(), np.broadcast_to(ref_pos[0, :1], (Tn, 2)))
+    assert (got[2][0] == 0).all()
+
+
+def test_refline_ties_match_jax():
+    """The plain reference-line matrices on exact ties and on lines whose
+    valid points are scattered, not a prefix, against the XLA path and the
+    Pallas kernel in interpret mode (1e-4), nearest indices equal to the
+    first argmin. Line points sit at the integers of the x axis with
+    headings of their own, candidates at x = k + 0.5 and y a multiple of
+    0.5: every distance is exact, so a candidate halfway between two valid
+    points ties, and the lower index must win."""
+    rng = np.random.default_rng(12)
+    R, M, Tn, Nr = 4, 3, 16, 40
+    cand_pos = np.stack([rng.integers(0, Nr - 1, (R, M, Tn)) + 0.5,
+                         0.5 * rng.integers(-6, 7, (R, M, Tn))], -1).astype(np.float32)
+    cand_heading = rng.uniform(-np.pi, np.pi, (R, M, Tn)).astype(np.float32)
+    ref_pos = np.stack(np.broadcast_arrays(np.arange(Nr, dtype=np.float32),
+                                           np.zeros((R, 1), np.float32)), -1).copy()
+    ref_heading = rng.uniform(-0.5, 0.5, (R, Nr)).astype(np.float32)
+    ref_valid = np.ones((R, Nr), bool)  # line 0: every point, so every candidate between two ties
+    ref_valid[1] = rng.random(Nr) < 0.3  # scattered
+    ref_valid[2, ::3] = False
+    ref_valid[3] = False
+    ref_valid[3, [2, 9, 10, 31]] = True
+    args = (cand_pos, cand_heading, ref_pos, ref_heading, ref_valid)
+    dd, da = jev.ref_line_matrices(*map(jnp.asarray, args))
+    flat = (cand_pos.reshape(R, M * Tn, 2), cand_heading.reshape(R, M * Tn))
+    dd_pl, da_pl = refline_matrices_pallas(
+        *map(jnp.asarray, flat + (ref_pos, ref_heading, ref_valid)), interpret=True
+    )
+    got_d, got_a, idx = refline_matrices_ref(
+        *map(T, flat + (ref_pos, ref_heading, ref_valid)), return_index=True
+    )
+    for ref_d, ref_a in ((dd, da), (dd_pl, da_pl)):
+        np.testing.assert_allclose(got_d.numpy().reshape(R, M, Tn), np.asarray(ref_d).reshape(R, M, Tn), atol=1e-4)
+        np.testing.assert_allclose(got_a.numpy().reshape(R, M, Tn), np.asarray(ref_a).reshape(R, M, Tn), atol=1e-4)
+    d2 = ((flat[0][:, :, None] - ref_pos[:, None]) ** 2).sum(-1)
+    d2 = np.where(ref_valid[:, None], d2, np.inf)
+    want = d2.argmin(-1)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    ties = (d2 == d2.min(-1, keepdims=True)).sum(-1) > 1
+    assert ties[0].all() and ties[1:].any()  # the ties are there, and the lower index won
+    assert (ref_pos[np.arange(R)[:, None], want][..., 0] < flat[0][..., 0])[ties].all()
 
 
 def test_forecast_kinematics_reward_match_jax():

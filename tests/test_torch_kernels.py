@@ -4,7 +4,7 @@ neither), so they run there without the JAX test configuration:
 
     python -m pytest tests/test_torch_kernels.py -m cuda -q --noconftest
 
-Without a CUDA device every test here but the replay's own check skips.
+Without a CUDA device every test here but the replay's own checks skips.
 Tolerances: f32 attention
 1e-5 (3xTF32 products on the tensor cores, f32-accurate, summed in
 another order), at the main path's shapes and at every tile edge;
@@ -17,7 +17,9 @@ away from near-ties (the two sum the PID windows and the speed
 polynomials in another order, so a threshold met on one side only sends
 a candidate along another path: see test_retrack_kernel_matches_plain);
 refline 1e-5 with the nearest indices equal (candidate
-points sit off the line's midpoints, so no two line points tie); the
+points sit off the line's midpoints, so no two line points tie, or, in
+the "ties" cases, on them with every distance exact: the lower index
+wins in both); the
 HistoryEncoder stage 1e-4 at the main path's N = 1536 rows (two f32
 LocalBlocks, products up to 384 deep summed in another order), and the
 whole-encoder kernel 1e-4 there (six blocks, the convolutions and the
@@ -155,7 +157,11 @@ def _replay(ref_pos, trace, dt=0.1):
     step's discrete decisions: how far the nearest path point is from a
     tie with the second nearest, the aim point from a tie between the two
     candidates, and the speed from the brake, stopped and throttle-floor
-    thresholds (inf where a decision does not matter)."""
+    thresholds (inf where a decision does not matter). Points at one
+    location (a path that stands still or doubles back) tie exactly in
+    every rounding, and both versions take the first of them: the nearest
+    point's margin is to the nearest point elsewhere, and two aim
+    candidates at one location are no tie."""
     center, heading, speed = trace
     G, T = heading.shape
     tracker = pid.TrackerState.zeros((G,), device=ref_pos.device)
@@ -170,11 +176,13 @@ def _replay(ref_pos, trace, dt=0.1):
         if t:
             d2 = ((ref_pos - pos[:, None]) ** 2).sum(-1)
             closest = torch.argmin(d2, dim=-1)
-            two = torch.topk(d2, 2, dim=-1, largest=False).values
-            m_closest = (two[:, 1] - two[:, 0]) / two[:, 0].clamp(min=1.0)
+            nearest = torch.gather(ref_pos, 1, closest[:, None, None].expand(G, 1, 2))
+            elsewhere = d2.masked_fill((ref_pos == nearest).all(-1), float("inf"))
+            d_min = d2.gather(1, closest[:, None])[:, 0]
+            m_closest = (elsewhere.amin(-1) - d_min) / d_min.clamp(min=1.0)
         idx = torch.clamp(closest[:, None] + ahead, max=T - 1)
-        local = rotate(torch.gather(ref_pos, 1, idx[..., None].expand(G, FUTURE_LEN, 2))
-                       - pos[:, None], -hd[:, None])
+        pts = torch.gather(ref_pos, 1, idx[..., None].expand(G, FUTURE_LEN, 2))
+        local = rotate(pts - pos[:, None], -hd[:, None])
         action, tracker = pid.track_step(tracker, local, v)
         npos, nhd, nv = dynamics.bicycle_step(pos, hd, v, action, dt)
         errs.append(torch.stack([(npos - center[:, t + 1]).abs().amax(-1),
@@ -186,8 +194,10 @@ def _replay(ref_pos, trace, dt=0.1):
         norm = torch.linalg.norm(wp[:, :2], dim=-1)
         braking = action[:, 2] >= 0.5
         free = lambda m: torch.where(braking, inf, m)
+        one_point = (pts[:, 9] == pts[:, 19]).all(-1)
         margins["closest"].append(m_closest)
-        margins["aim"].append(free(((norm[:, 1] - aim).abs() - (norm[:, 0] - aim).abs()).abs() / aim))
+        margins["aim"].append(free(torch.where(
+            one_point, inf, ((norm[:, 1] - aim).abs() - (norm[:, 0] - aim).abs()).abs() / aim)))
         margins["brake_speed"].append((desired - pid.BRAKE_SPEED).abs() / pid.BRAKE_SPEED)
         margins["brake_ratio"].append(
             (v / desired.clamp(min=1e-4) - pid.BRAKE_RATIO).abs() / pid.BRAKE_RATIO)
@@ -206,19 +216,65 @@ def test_replay_of_the_plain_rollout_is_exact():
     assert all(m.shape == (40, 39) and (m >= 0).all() for m in margins.values())
 
 
-def _retrack_inputs(r, G, T):
+def _retrack_inputs(r, G, T, kind="curves"):
     """G paths of T points, 0-18 m/s, gentle curvature, anywhere in a
-    200 m square, and a start heading and speed each."""
+    200 m square, and a start heading and speed each. "standing": every
+    point of a path at its start; "doubled": a path that turns back
+    halfway and retraces its own points (point t at point T-1-t);
+    "tiled": the first 300 "curves" candidates again and again."""
+    if kind == "tiled":
+        return [a[np.arange(G) % 300] for a in _retrack_inputs(r, 300, T)]
     t = np.arange(T, dtype=np.float32)
     yaw = r.uniform(-np.pi, np.pi, (G, 1)) + r.uniform(-0.02, 0.02, (G, 1)) * t
     step = r.uniform(0.0, 1.8, (G, 1))
     d = np.stack([np.cos(yaw), np.sin(yaw)], -1) * step[..., None]
     pos = r.uniform(0, 200, (G, 1, 2)) + np.cumsum(d, 1) - d[:, :1]
+    if kind == "standing":
+        pos = np.repeat(pos[:, :1], T, 1)
+    elif kind == "doubled":
+        pos = pos[:, np.minimum(np.arange(T), T - 1 - np.arange(T))]
     return [np.ascontiguousarray(a, np.float32) for a in (pos, yaw[:, 0], r.uniform(0, 12, G))]
 
 
+def test_replay_exempts_coincident_points():
+    """On the CPU: on paths that stand still or double back, whose points
+    tie exactly with their twins at every step, the replay of the plain
+    rollout is exact and reports no exact closest-point tie (a standing
+    path none at all)."""
+    for kind in ("standing", "doubled"):
+        args = [torch.from_numpy(a)
+                for a in _retrack_inputs(np.random.default_rng(5), 24, 40, kind)]
+        err, margins = _replay(args[0], retrack_rollout_ref(*args))
+        assert err.max().item() == 0.0, kind
+        assert (margins["closest"] > 0).all(), kind
+        if kind == "standing":
+            assert margins["closest"].isinf().all()
+
+
+# (G, T, kind) of the retrack card test: the main path's T = 40 with the
+# ragged block tails of G = 1, 5 and 129 (4 blocks of 32 candidates and
+# one more) and, at G = 9219, the 300 candidates of the first case tiled,
+# each of them at many block offsets and tail positions; the T edges 1, 2
+# and 12 (aim lookups clamped) and 41, the first past the paths kept in
+# registers, where the search reads shared memory; the exact ties of
+# paths that stand still or double back, up to T = 256, the longest and
+# the one that needs more than 48 KB of shared memory. (Random curved
+# paths over hundreds of steps, or thousands of random candidates, break
+# this test's share and onset rules through the plain version's other
+# rounding alone, with the bits of the serial kernel as with these:
+# near-ties grow with the horizon, and among thousands, or on paths that
+# turn back, a candidate can drift past 2e-3 without one. Chip_smoke holds
+# 9216 random candidates by the share of diverging ones.)
+RETRACK_CASES = [
+    (300, 40, "curves"), (1, 40, "curves"), (5, 40, "curves"), (129, 40, "curves"),
+    (9219, 40, "tiled"), (300, 1, "curves"), (300, 2, "curves"), (300, 12, "curves"),
+    (129, 41, "curves"), (129, 40, "standing"), (129, 40, "doubled"), (129, 256, "standing"),
+]
+
+
 @pytest.mark.cuda
-def test_retrack_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("G,T,kind", RETRACK_CASES)
+def test_retrack_kernel_matches_plain(cuda_device, G, T, kind):
     """Free-running, a candidate whose step meets a threshold (a near-tied
     closest point, a brake or throttle-floor test) on one side only takes
     another path from there on, so the kernel and the plain version are
@@ -239,12 +295,17 @@ def test_retrack_kernel_matches_plain(cuda_device):
     1.8e-7 from the 0.3 throttle floor along the plain rollout and 5.3e-5
     along the kernel's, on the other side, so one coasts and the other
     follows the throttle polynomial, and the paths part from row 12."""
-    G, T = 300, 40
     args = [torch.from_numpy(a).to(cuda_device)
-            for a in _retrack_inputs(np.random.default_rng(3), G, T)]
+            for a in _retrack_inputs(np.random.default_rng(3), G, T, kind)]
     got = retrack_rollout(*args)
     torch.cuda.synchronize()
+    if kind == "tiled":  # every copy of a candidate, wherever it sits, gives the same bits
+        copies = torch.arange(G, device=cuda_device) % 300
+        assert all(torch.equal(x, x[:300][copies]) for x in got)
     ref = retrack_rollout_ref(*args)
+    if T == 1:  # the start alone
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        return
     err = torch.stack([(a - b).abs().reshape(G, -1).amax(1) for a, b in zip(got, ref)]).amax(0)
     diverged = err > 2e-3
     print(f"free-running: {int(diverged.sum())} of {G} diverged, max error of the others "
@@ -279,24 +340,65 @@ def test_retrack_kernel_matches_plain(cuda_device):
     assert diverged.float().mean().item() <= 0.01
 
 
-@pytest.mark.cuda
-def test_refline_kernel_matches_plain(cuda_device):
-    r = np.random.default_rng(4)
-    BR, MT, Nr = 64, 480, 120
-    # line points 1 m apart along x; candidates at x = k + 0.25 never tie
-    cand = np.stack([r.integers(0, 110, (BR, MT)) + 0.25, r.uniform(-5, 5, (BR, MT))], -1)
-    ref = np.stack(np.broadcast_arrays(np.arange(Nr, dtype=np.float32), np.zeros((BR, 1))), -1)
+def _refline_inputs(r, BR, MT, Nr, kind):
+    """Lines of Nr points 1 m apart along the x axis (centred on the origin
+    past 128 points, so that the plain version's |c|^2 + |r|^2 - 2 c.r
+    ranks points 1 m apart without error) and candidate points off the
+    line: at x = k + 0.25, where no two line points tie, or for "ties" at
+    x = k + 0.5 and y a multiple of 0.5, where every distance is exact and
+    a candidate halfway between two valid points ties (the lower index
+    wins). Valid points: a prefix of each line ("prefix"), scattered
+    ("scattered", and every other line of "ties"), or none ("empty");
+    line 3 is empty in every batch."""
+    lo = -(Nr // 2) if Nr > 128 else 0
+    if kind == "ties":
+        cand = np.stack([r.integers(0, max(Nr - 1, 1), (BR, MT)) + 0.5 + lo,
+                         0.5 * r.integers(-6, 7, (BR, MT))], -1)
+    else:
+        cand = np.stack([r.integers(0, max(Nr - 10, 1), (BR, MT)) + 0.25 + lo,
+                         r.uniform(-5, 5, (BR, MT))], -1)
+    ref = np.stack(np.broadcast_arrays(np.arange(Nr, dtype=np.float32) + lo, np.zeros((BR, 1))), -1)
     valid = np.arange(Nr) < r.integers(1, Nr + 1, (BR, 1))
+    if kind in ("scattered", "ties"):
+        scattered = r.random((BR, Nr)) < 0.3
+        valid = scattered if kind == "scattered" else np.where(np.arange(BR)[:, None] % 2, scattered, True)
+    elif kind == "empty":
+        valid[:] = False
     valid[3] = False  # an empty line: index 0, as an argmin over all-inf
+    return cand, r.uniform(-3, 3, (BR, MT)), ref, r.uniform(-0.1, 0.1, (BR, Nr)), valid
+
+
+# (BR, MT, Nr, kind) of the refline card test: the main path's MT = 480 (a
+# whole number of the kernel's tiles) and Nr = 120, MT's edges 1, 7 and
+# 481 (a ragged tile), Nr's 1 and 2048 (the kernel's limit), valid points
+# scattered, lines with no valid point, and exact ties
+REFLINE_CASES = [
+    (64, 480, 120, "prefix"), (64, 1, 120, "prefix"), (64, 7, 120, "prefix"),
+    (64, 481, 120, "prefix"), (64, 480, 1, "prefix"), (16, 480, 2048, "prefix"),
+    (64, 480, 120, "scattered"), (16, 481, 2048, "scattered"), (64, 480, 120, "empty"),
+    (64, 480, 120, "ties"), (16, 7, 2048, "ties"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BR,MT,Nr,kind", REFLINE_CASES)
+def test_refline_kernel_matches_plain(cuda_device, BR, MT, Nr, kind):
+    cand, cand_h, ref, ref_h, valid = _refline_inputs(np.random.default_rng(4), BR, MT, Nr, kind)
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda_device)
-    args = (f(cand), f(r.uniform(-3, 3, (BR, MT))), f(ref), f(r.uniform(-0.1, 0.1, (BR, Nr))),
-            torch.from_numpy(valid).to(cuda_device))
+    args = (f(cand), f(cand_h), f(ref), f(ref_h), torch.from_numpy(valid).to(cuda_device))
     dis, ang, idx = refline_matrices(*args, return_index=True)
     torch.cuda.synchronize()
     rdis, rang, ridx = refline_matrices_ref(*args, return_index=True)
     assert torch.equal(idx, ridx)
     torch.testing.assert_close(dis, rdis, atol=1e-5, rtol=0)
     torch.testing.assert_close(ang, rang, atol=1e-5, rtol=0)
+    if kind == "ties":  # ties there, and the lower index won
+        d2 = ((args[0][:, :, None] - args[2][:, None]) ** 2).sum(-1)
+        d2 = d2.masked_fill(~args[4][:, None], float("inf"))
+        tie = (d2 == d2.amin(-1, keepdim=True)).sum(-1) > 1
+        assert tie.any()
+        near_x = torch.gather(args[2][..., 0], 1, idx)
+        assert (near_x < args[0][..., 0])[tie].all()
 
 
 @pytest.mark.cuda

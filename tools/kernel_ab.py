@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the attention, PointNet and whole-HistoryEncoder CUDA kernels of
-two checkouts of this repository on one card, in turns: baseline, this
-tree, this tree, baseline.
+"""Times the attention, PointNet, whole-HistoryEncoder, re-tracking and
+reference-line CUDA kernels of two checkouts of this repository on one
+card, in turns: baseline, this tree, this tree, baseline.
 
     git archive HEAD~1 | (mkdir -p build/baseline && tar -x -C build/baseline)
     python3 tools/kernel_ab.py --baseline build/baseline
@@ -19,11 +19,17 @@ CBVs, a fit step's batch 256, and 12 and 48 CBVs (4 and 16 scenarios of
 the act's reference-line launch (N=768 rows of P=120 points, C=6, a random
 valid prefix per row) and at the fit's map-row launch (N=16384, P=20, C=10,
 every point valid); the whole encoder at the act's N=1536 and the fit's
-N=8192 history rows. Each turn also checks its kernels against the plain
-versions (max abs error, f32), and times on the host clock (ending in a
-synchronise) the eval act step and a fine-tune step at batch 256 as
-`python3 -m rift_tpu_torch.profile_act --mode eval|fit` sets them up
-(chip_smoke's scene at S=64, the full-width bf16 model), without the
+N=8192 history rows; the GRPO evaluator's re-tracking at the train act's
+G=9216 candidates of T=40 points and its reference-line matrices at
+BR=768 pairs, MT=480, Nr=120 (chip_smoke.py's `retrack_inputs` and
+`refline_inputs`), launched from Python (`ms`) and replayed from a CUDA
+graph (`device_ms`), each with a SHA-256 digest of its outputs, so that
+the turns show whether two versions of a kernel give the same bits. Each
+turn also checks the other kernels against the plain versions (max abs
+error, f32), and times on the host clock (ending in a synchronise) the
+eval act step, the train act step and a fine-tune step at batch 256 as
+`python3 -m rift_tpu_torch.profile_act --mode eval|train|fit` sets them
+up (chip_smoke's scene at S=64, the full-width bf16 model), without the
 profiler. Prints one JSON line per turn and a summary line with each
 number per turn, the card's name and power limit. Needs a CUDA device.
 """
@@ -31,6 +37,7 @@ number per turn, the card's name and power limit. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import math
@@ -45,6 +52,7 @@ ATTENTION_BATCH = {"attention_act": 192, "attention_fit": 256, "attention_12": 1
                    "attention_48": 48}
 POINT_SHAPES = {"points_act": (768, 120, 6, True), "points_fit": (16384, 20, 10, False)}
 ENCODER_SHAPES = {"encoder_act": 1536, "encoder_fit": 8192}
+EVALUATOR = ("retrack", "refline")
 
 
 def _chip_smoke():
@@ -106,6 +114,35 @@ def encoder_inputs(torch, seed, N):
     return rn(N, 20, 9), W
 
 
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def evaluator_kernels(torch) -> dict:
+    """The re-tracking and reference-line kernels at the train act's
+    shapes, on chip_smoke's inputs (the same seeds as its checks)."""
+    from rift_tpu_torch.ops import refline, retrack
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rt = smoke.retrack_inputs(torch, gen, smoke.S * smoke.C * smoke.REFS * smoke.MODES,
+                              smoke.EVAL_FRAMES)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rl = smoke.refline_inputs(torch, gen, smoke.S * smoke.C * smoke.REFS,
+                              smoke.MODES * smoke.EVAL_FRAMES, smoke.POINTS)
+    out = {}
+    for name, fn, full in (
+        ("retrack", lambda: retrack.retrack_rollout(*rt), lambda: retrack.retrack_rollout(*rt)),
+        ("refline", lambda: refline.refline_matrices(*rl),
+         lambda: refline.refline_matrices(*rl, return_index=True)),
+    ):
+        out[name] = {"ms": cuda_ms(torch, fn), "device_ms": graph_ms(torch, fn),
+                     "digest": digest(*full())}
+    return out
+
+
 def host_ms(torch, fn, reps, warmup=3):
     for _ in range(warmup):
         fn()
@@ -134,6 +171,7 @@ def step_times(torch) -> dict:
     act = lambda train: pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, train=train,
                                       map_tok=tok)
     act_ms = host_ms(torch, lambda: act(False), 10)
+    train_ms = host_ms(torch, lambda: act(True), 5)
     samples, valid = cs.train_samples(torch, act(True))
     first = lambda t: {k: first(x) for k, x in t.items()} if isinstance(t, dict) else t[0]
     buf = ring_append(ring_init(first(samples), capacity=256), samples, valid)
@@ -143,7 +181,8 @@ def step_times(torch) -> dict:
     for n, p in model.named_parameters():  # frozen, as fit() holds them
         p.requires_grad_("pi_head" in n)
     fit_ms = host_ms(torch, lambda: train_step(model, opt, rift_loss_fn, batch, cfg.lr, cfg), 20)
-    return {"eval_act_step": {"ms": act_ms}, "fit_step": {"ms": fit_ms}}
+    return {"eval_act_step": {"ms": act_ms}, "train_act_step": {"ms": train_ms},
+            "fit_step": {"ms": fit_ms}}
 
 
 def turn() -> dict:
@@ -179,6 +218,7 @@ def turn() -> dict:
             err = (got - history.history_encoder_ref(x, W)).abs().max().item()
             ms = cuda_ms(torch, lambda: history.history_encoder(x, W))
             out[name] = {"ms": ms, "max_abs_err": err}
+    out.update(evaluator_kernels(torch))
     out.update(step_times(torch))
     return out
 
@@ -220,14 +260,16 @@ def main() -> int:
         print(json.dumps(r))
         turns.append(r)
     summary = {"card": card}
-    for name in (*ATTENTION_BATCH, *POINT_SHAPES, *ENCODER_SHAPES, "eval_act_step",
-                 "fit_step"):
+    for name in (*ATTENTION_BATCH, *POINT_SHAPES, *ENCODER_SHAPES, *EVALUATOR,
+                 "eval_act_step", "train_act_step", "fit_step"):
         summary[name] = {"ms_by_turn": [(t["label"], t[name]["ms"]) for t in turns]}
-        for key in ("device_ms", "device_ms_by_launch"):
+        for key in ("device_ms", "device_ms_by_launch", "digest"):
             if key in turns[0][name]:
                 summary[name][f"{key}_by_turn"] = [(t["label"], t[name][key]) for t in turns]
         if "max_abs_err" in turns[0][name]:
             summary[name]["max_abs_err"] = max(t[name]["max_abs_err"] for t in turns)
+        if "digest" in turns[0][name]:
+            summary[name]["same_bits"] = len({t[name]["digest"] for t in turns}) == 1
     print(card)
     print(json.dumps(summary))
     return 0
