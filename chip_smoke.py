@@ -18,14 +18,15 @@ Phases (any failure raises and exits non-zero):
      rollout (at most 1% of the 9216 candidates diverging by more than
      2e-3), the refline matrices (at most 1% of the nearest points
      flipped, 1e-4 elsewhere), the HistoryEncoder stage at its three
-     levels in f32 (atol 1e-4) and the whole-encoder kernel at N = 1536, a
-     ragged N = 1537 and a fit step's N = 8192 history rows in f32 (atol
-     1e-4); time kernel, plain version and, where one PyTorch call
+     levels in f32 at one act call's N = 1536 and a bc_pluto fit step's
+     N = 8192 history rows (atol 1e-4) and the whole-encoder kernel at N =
+     1536, a ragged N = 1537 and N = 8192 in f32 (atol 1e-4); time
+     kernel, plain version and, where one PyTorch call
      computes the same function, that call (scaled_dot_product_attention,
      nn.TransformerEncoder; timed only, the port never calls them; the
      attention's 17 launches of a few µs each, the retrack and the
      refline launch launched from Python and, as device time, replayed
-     from a CUDA graph), with the PointNet
+     from a CUDA graph), with the PointNet, the stage
      and the whole encoder timed at the fit's shape too; then
      the gradients through the attention, PointNet and stage autograd
      Functions against the plain versions' gradients (f32, atol 1e-4);
@@ -503,52 +504,60 @@ def library_stage(torch, D, H, ws, biases, N):
 
 def check_history(torch, history):
     """Stage kernel vs plain version at the three HistoryEncoder levels of
-    one act call (N = S*A history rows), f32, atol 1e-4 (two LocalBlocks,
+    one act call (N = S*A history rows) and of a fit step that trains the
+    encoder (N = FIT_HISTORY_ROWS), f32, atol 1e-4 (two LocalBlocks,
     products up to 3D = 384 deep summed in another order); times of the
-    three launches against the plain version and nn.TransformerEncoder,
-    whose error against the kernel (both blocks given block 0's bias, as
-    its one mask) is reported, not bounded. The bound counts the
-    multiply-adds of the products, and of the attention at the pairs the
-    band leaves."""
+    three launches at each N against the plain version and
+    nn.TransformerEncoder, whose error against the kernel (both blocks
+    given block 0's bias, as its one mask) is reported, not bounded. The
+    bound counts the multiply-adds of the products, and of the attention
+    at the pairs the band leaves. The fit's numbers carry the prefix
+    `fit_`; `max_abs_err` is the larger of the two N's."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    N = S * A
-    calls, err, lib_err, flops, nbytes = [], 0.0, 0.0, 0, 0
-    for (T, D, H), window in zip(HIST, WINDOWS):
-        x, ws, biases = stage_inputs(torch, gen, N, T, D, H, window)
-        got = history.local_stage(x, ws, *biases, H)
-        ref = history.local_stage_ref(x, ws, *biases, H)
-        torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        err = max(err, e)
-        if not e <= 1e-4:
-            raise AssertionError(f"history stage T={T} D={D}: max err {e} > 1e-4")
-        enc, mask = library_stage(torch, D, H, ws, biases, N)
+    out = {}
+    for tag, N in (("", S * A), ("fit_", FIT_HISTORY_ROWS)):
+        calls, err, lib_err, flops, nbytes = [], 0.0, 0.0, 0, 0
+        for (T, D, H), window in zip(HIST, WINDOWS):
+            x, ws, biases = stage_inputs(torch, gen, N, T, D, H, window)
+            got = history.local_stage(x, ws, *biases, H)
+            ref = history.local_stage_ref(x, ws, *biases, H)
+            torch.cuda.synchronize()
+            e = (got - ref).abs().max().item()
+            err = max(err, e)
+            if not e <= 1e-4:
+                raise AssertionError(f"history stage N={N} T={T} D={D}: max err {e} > 1e-4")
+            enc, mask = library_stage(torch, D, H, ws, biases, N)
+            with torch.no_grad():
+                same = history.local_stage(x, ws, biases[0], biases[0], H)
+                lib_err = max(lib_err, (enc(x, mask=mask) - same).abs().max().item())
+            calls.append((x, ws, biases, H, (enc, mask)))
+            for b in biases:
+                # per block: the qkv, out, mlp1 and mlp2 products, and QK and
+                # AV over the (query, key) pairs the band leaves (exp(-1e9) is 0)
+                keys = int((b[0] > -1e8).sum())
+                flops += 2 * N * (10 * T * D * D + 2 * keys * D)
+            nbytes += 4 * (2 * x.numel() + sum(w.numel() for w in ws) + 2 * biases[0].numel())
+        bound, by = bound_ms(nbytes, flops, "tf32x3")
         with torch.no_grad():
-            same = history.local_stage(x, ws, biases[0], biases[0], H)
-            lib_err = max(lib_err, (enc(x, mask=mask) - same).abs().max().item())
-        calls.append((x, ws, biases, H, (enc, mask)))
-        for b in biases:
-            # per block: the qkv, out, mlp1 and mlp2 products, and QK and AV
-            # over the (query, key) pairs the band leaves (exp(-1e9) is 0)
-            keys = int((b[0] > -1e8).sum())
-            flops += 2 * N * (10 * T * D * D + 2 * keys * D)
-        nbytes += 4 * (2 * x.numel() + sum(w.numel() for w in ws) + 2 * biases[0].numel())
-    bound, by = bound_ms(nbytes, flops, "tf32x3")
-    with torch.no_grad():
-        lib_ms = cuda_ms(torch, lambda: [enc(x, mask=m) for x, _, _, _, (enc, m) in calls])
-    return {
-        "ms": cuda_ms(torch, lambda: [history.local_stage(x, w, *b, H) for x, w, b, H, _ in calls]),
-        "plain_ms": cuda_ms(torch, lambda: [history.local_stage_ref(x, w, *b, H)
-                                            for x, w, b, H, _ in calls]),
-        "library_ms": lib_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "bound_ms_f32_cuda_cores": bound_ms(nbytes, flops, "float32")[0],
-        "max_abs_err": err,
-        "library_max_abs_err": lib_err,
-        "gflop": flops / 1e9,
-        "timed_work": f"the 3 launches of one act call, N={N} rows, (T, D, H) = {HIST}, f32",
-    }
+            lib_ms = cuda_ms(torch, lambda: [enc(x, mask=m) for x, _, _, _, (enc, m) in calls])
+        out.update({
+            f"{tag}ms": cuda_ms(torch, lambda: [history.local_stage(x, w, *b, H)
+                                                for x, w, b, H, _ in calls]),
+            f"{tag}plain_ms": cuda_ms(torch, lambda: [history.local_stage_ref(x, w, *b, H)
+                                                      for x, w, b, H, _ in calls]),
+            f"{tag}library_ms": lib_ms,
+            f"{tag}bound_ms": bound,
+            f"{tag}bound_by": by,
+            f"{tag}bound_ms_f32_cuda_cores": bound_ms(nbytes, flops, "float32")[0],
+            f"{tag}max_abs_err": err,
+            f"{tag}library_max_abs_err": lib_err,
+            f"{tag}gflop": flops / 1e9,
+            f"{tag}timed_work": f"the 3 launches of {'a bc_pluto fit step' if tag else 'one act call'}"
+                                f", N={N} rows, (T, D, H) = {HIST}, f32",
+        })
+        del calls
+    out["max_abs_err"] = max(out["max_abs_err"], out["fit_max_abs_err"])
+    return out
 
 
 def encoder_inputs(torch, gen, N):
@@ -1095,7 +1104,7 @@ def main() -> int:
         "history_encoder": check_history_encoder(torch, history),
     }
     grad_err = check_gradients(torch, attention, points, history)
-    for name in ("points_encoder", "history_encoder"):
+    for name in ("points_encoder", "local_stage", "history_encoder"):
         r = results[name]
         print(f"# {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['timed_work']}); "
               f"{r['fit_ms']:.4f} ms (bound {r['fit_bound_ms']:.4f}, {r['fit_timed_work']})",

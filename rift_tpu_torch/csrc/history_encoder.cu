@@ -51,7 +51,9 @@
 // read lat1 rows 8-9, which read lat2 rows 3-4; so the level outputs are
 // kept (and normalised) at rows 17-19, 7-9 and 2-4 only. The TPU kernel's
 // padding of N to 128 is not carried over: a block's chunks cover exactly
-// its sequences.
+// its sequences. The product, the LayerNorm, the attention and the
+// LocalBlock are history_common.cuh's, shared with the stage kernel
+// (history_stage.cu), which takes them with a dense bias.
 // ptxas -v (sm_90a, CUDA 12.8): 128 registers, 136-byte stack frame, 140
 // bytes of spill stores and 272 of spill loads; 215,776 bytes of dynamic
 // shared memory.
@@ -59,14 +61,18 @@
 #include <cuda_runtime.h>
 
 #include "history_common.cuh"
-#include "tf32x3.cuh"
 
 namespace {
 
 using history::kBlockWeights;
+using history::kStage;
+using history::kStages;
+using history::kThreads;
+using history::kWarps;
+using history::layer_norm4;
+using history::local_block;
+using history::product;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kG = 12;      // sequences per chunk
 constexpr int kLevels = 3;
 constexpr int kT0 = 20;     // tokens at level 0; 10 and 5 below
@@ -75,7 +81,6 @@ constexpr int kD0 = 32;     // width at level 0; 64 and 128 below
 constexpr int kOut = 128;   // lateral and output width
 constexpr int kKeep = 3;    // level-output rows kept per sequence
 constexpr int kLat = 2;     // lateral rows kept per sequence
-constexpr int kNT = 6;      // n8 tiles a warp holds at once
 // weight pointers in rift_tpu/ops/history.py:weight_order, then the six
 // blk{i}_rpb tables
 constexpr int kConv0 = 0;
@@ -105,20 +110,8 @@ struct EncoderParams {
 constexpr int kStream = kG * kT0 * (kD0 + 4);    // 8640 >= 120*68, 60*132
 constexpr int kWide = kG * kT0 * (3 * kD0 + 4);  // 24000 >= 120*196, 60*388
 constexpr int kOuts = kG * kKeep * ((kD0 + 4) + (2 * kD0 + 4) + (4 * kD0 + 4));
-constexpr int kStage = 3200;  // 16 rows of up to 192 columns
-constexpr int kAhead = 2;     // K-slices in flight beyond the one in use
-constexpr int kStages = kAhead + 2;
 constexpr int kLdLat = kOut + 4;
 constexpr int kFloats = kStream + kWide + kOuts + kStages * kStage + 8;
-
-// Rows of a product's A operand: a(r, k0) points at A[r][k0 .. k0+7].
-struct Rows {
-  const float* a;
-  int ld;
-  __device__ const float* operator()(int r, int k0) const {
-    return a + r * ld + k0;
-  }
-};
 
 // The A operand of a k=3 convolution (W [3, D, N] read as [3D, N]):
 // output row r = seq * m + i is position t = t0 + i * stride of its
@@ -137,256 +130,6 @@ struct ConvRows {
     return in + (seq * rows + ti - base) * ld + k0 - tap * D;
   }
 };
-
-// out[r, c] = sum_k A(r, k) W[k, c] for r < M, c < N, handed to
-// epi(r, c, value) once every warp's K loop has ended. W [K, N] row-major
-// (device memory, N % 16 == 0, K % 16 == 0) streams through wbuf, a ring
-// of kStages K-slices (as many rows as fit, a multiple of 16; a pass is
-// at most 192 columns wide) with kAhead in flight, shared by the block's
-// warps.
-// The warps split the m16 tiles mw ways (mw >= the tiles) and the n8
-// tiles kWarps / mw ways; a warp holds at most kNT n8 tiles at once, so
-// wider products run in column passes, right to left: a pass writes its
-// columns only after its K loop, and A may be the columns left of them (a
-// product may overwrite its own input). Products in 3xTF32; each warp
-// sums 16 deep of K from zero and adds it to its accumulator in f32 (the
-// tensor cores truncate each result, which over a long chain into one
-// accumulator would bias the sum). Rows past M in the last m16 tile read
-// row M - 1 and are discarded. Starts and ends synchronised.
-template <class ARow, class Epi>
-__device__ void product(ARow arow, int M, int K,
-                        const float* __restrict__ W, int N, int mw,
-                        float* wbuf, Epi epi) {
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int nw = kWarps / mw;
-  const int mi = warp % mw, ni = warp / mw;
-  const int nt = (N / 8 + nw - 1) / nw;  // n8 tiles per warp: 12, 4 or 2
-  const int ra = min(16 * mi + g, M - 1), rb = min(16 * mi + g + 8, M - 1);
-  for (int q = (nt - 1) / kNT; q >= 0; --q) {
-    const int ntq = min(kNT, nt - q * kNT);  // even
-    const int c0 = 8 * q * kNT * nw;         // the pass's columns
-    const int cols = min(8 * ntq * nw, N - c0);
-    const int j0 = ni * ntq;                 // the warp's, from c0
-    const bool active = 16 * mi < M && 8 * j0 < cols;
-    const int ldb = cols + 8;  // = 8 or 24 mod 32: B fragments hit 32 banks
-    // K-slice rows: the largest 16 * 2^i that fits and divides K
-    int ks = 16;
-    while (2 * ks * ldb <= kStage && K % (2 * ks) == 0) ks *= 2;
-    float acc[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-    const int slices = K / ks;
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      if (i < slices) tc::stage(wbuf + i * kStage, ldb, W, N, i * ks, ks, c0, cols);
-      tc::cp_commit();
-    }
-    for (int s = 0; s < slices; ++s) {
-      // slice s + kAhead into the stage last read at s - 2 (every warp has
-      // passed s - 1's barrier since)
-      if (s + kAhead < slices)
-        tc::stage(wbuf + (s + kAhead) % kStages * kStage, ldb, W, N,
-                  (s + kAhead) * ks, ks, c0, cols);
-      tc::cp_commit();
-      tc::cp_wait<kAhead>();
-      __syncthreads();
-      if (active) {
-        const float* B = wbuf + s % kStages * kStage;
-        for (int kk = 0; kk < ks; kk += 16) {
-          uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float* pa = arow(ra, s * ks + kk + 8 * h);
-            const float* pb = arow(rb, s * ks + kk + 8 * h);
-            tc::split(pa[t], ahi[h][0], alo[h][0]);
-            tc::split(pb[t], ahi[h][1], alo[h][1]);
-            tc::split(pa[t + 4], ahi[h][2], alo[h][2]);
-            tc::split(pb[t + 4], ahi[h][3], alo[h][3]);
-          }
-          // two n8 tiles at a time, their mma chains interleaved; each 16
-          // deep of K summed from zero
-#pragma unroll
-          for (int j = 0; j < kNT; j += 2) {
-            if (j < ntq && 8 * (j0 + j) < cols) {
-              float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                uint32_t bhi0[2], blo0[2], bhi1[2], blo1[2];
-                tc::load_b(B, ldb, kk + 8 * h, 8 * (j0 + j), bhi0, blo0);
-                tc::load_b(B, ldb, kk + 8 * h, 8 * (j0 + j + 1), bhi1, blo1);
-                tc::mma(d0, alo[h], bhi0);
-                tc::mma(d1, alo[h], bhi1);
-                tc::mma(d0, ahi[h], blo0);
-                tc::mma(d1, ahi[h], blo1);
-                tc::mma(d0, ahi[h], bhi0);
-                tc::mma(d1, ahi[h], bhi1);
-              }
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                acc[j][i] += d0[i];
-                acc[j + 1][i] += d1[i];
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        if (j < ntq && 8 * (j0 + j) < cols) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = 16 * mi + g + (i >> 1) * 8;
-            if (r < M) epi(r, c0 + 8 * (j0 + j) + 2 * t + (i & 1), acc[j][i]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// y[r, :] = LN(x[src(r), :]) * s + b for r < R, where src(r) = (r / m) *
-// T + t0 + r % m: the rows t0 .. t0+m-1 of each sequence of T rows. D / 4
-// lanes take a row (D = 32, 64, 128), a float4 each, so a warp normalises
-// 4, 2 or 1 rows at once; row strides are multiples of 4.
-__device__ void layer_norm4(const float* x, int ldx, int T, int t0, int m,
-                            float* y, int ldy, int R, int D,
-                            const float* __restrict__ s,
-                            const float* __restrict__ b) {
-  const int L = D / 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / L, li = lane - sub * L;
-  const int per = 32 / L;
-  for (int r0 = warp * per; r0 < R; r0 += kWarps * per) {
-    const int r = r0 + sub;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < R) {
-      const int seq = r / m;
-      v = reinterpret_cast<const float4*>(
-          x + (seq * T + t0 + r - seq * m) * ldx)[li];
-    }
-    float sum = (v.x + v.y) + (v.z + v.w);
-    for (int off = L / 2; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float mu = sum / D;
-    const float dx = v.x - mu, dy = v.y - mu, dz = v.z - mu, dw = v.w - mu;
-    float sq = (dx * dx + dy * dy) + (dz * dz + dw * dw);
-    for (int off = L / 2; off > 0; off >>= 1)
-      sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float inv = rsqrtf(sq / D + 1e-5f);
-    if (r < R) {
-      const int c = 4 * li;
-      reinterpret_cast<float4*>(y + r * ldy)[li] = make_float4(
-          dx * inv * __ldg(s + c) + __ldg(b + c),
-          dy * inv * __ldg(s + c + 1) + __ldg(b + c + 1),
-          dz * inv * __ldg(s + c + 2) + __ldg(b + c + 2),
-          dw * inv * __ldg(s + c + 3) + __ldg(b + c + 3));
-    }
-  }
-}
-
-// o[r, h*16 .. h*16+15] = softmax_j(q_r . k_j / 4 + bias(h, t, j)) v_j
-// within each sequence (head dim 16 at every level), written over q: the
-// qkv rows (stride ldq, a multiple of 4) hold [q | k | v]. One thread per
-// (row, head), its q, the T <= kMaxT logits and its output in registers,
-// the keys and values read as float4.
-__device__ void attention16(float* qkv, int ldq, int nseq, int T, int D,
-                            int H, history::BandRpbBias bias) {
-  for (int item = threadIdx.x; item < nseq * T * H; item += blockDim.x) {
-    const int r = item / H;  // heads fastest: neighbours share a row
-    const int h = item - r * H;
-    const int t = r % T;
-    const int r0 = r - t;  // the sequence's first row
-    float4* qp = reinterpret_cast<float4*>(qkv + r * ldq + h * 16);
-    const float4 q0 = qp[0], q1 = qp[1], q2 = qp[2], q3 = qp[3];
-    float l[history::kMaxT];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < history::kMaxT; ++j) {
-      if (j < T) {
-        const float4* kp =
-            reinterpret_cast<const float4*>(qkv + (r0 + j) * ldq + D + h * 16);
-        const float4 k0 = kp[0], k1 = kp[1], k2 = kp[2], k3 = kp[3];
-        float acc = q0.x * k0.x + q0.y * k0.y + q0.z * k0.z + q0.w * k0.w;
-        acc += q1.x * k1.x + q1.y * k1.y + q1.z * k1.z + q1.w * k1.w;
-        acc += q2.x * k2.x + q2.y * k2.y + q2.z * k2.z + q2.w * k2.w;
-        acc += q3.x * k3.x + q3.y * k3.y + q3.z * k3.z + q3.w * k3.w;
-        l[j] = acc * 0.25f + bias(h, t, j);
-        m = fmaxf(m, l[j]);
-      }
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < history::kMaxT; ++j) {
-      if (j < T) {
-        l[j] = expf(l[j] - m);
-        sum += l[j];
-      }
-    }
-    float4 o[4] = {};
-#pragma unroll
-    for (int j = 0; j < history::kMaxT; ++j) {
-      if (j < T) {
-        const float4* vp = reinterpret_cast<const float4*>(
-            qkv + (r0 + j) * ldq + 2 * D + h * 16);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 v = vp[c];
-          o[c].x += l[j] * v.x;
-          o[c].y += l[j] * v.y;
-          o[c].z += l[j] * v.z;
-          o[c].w += l[j] * v.w;
-        }
-      }
-    }
-    const float inv = 1.0f / sum;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      qp[c] = make_float4(o[c].x * inv, o[c].y * inv, o[c].z * inv,
-                          o[c].w * inv);
-  }
-}
-
-// One pre-LN LocalBlock over the R = nseq * T rows of xs (stride D + 4),
-// in place: x += attn(LN1(x)); x += mlp2(gelu(mlp1(LN2(x)))), with wide
-// (stride 3D + 4) as the LN output, qkv, attention output (over q) and
-// MLP hidden. w: the block's kBlockWeights weights. Ends synchronised.
-__device__ void local_block(float* xs, float* wide, int nseq, int T, int D,
-                            int H, int mw, const float* const* w,
-                            history::BandRpbBias bias, float* wbuf) {
-  const int R = nseq * T, ld = D + 4, ldw = 3 * D + 4;
-  const Rows a{wide, ldw};
-  layer_norm4(xs, ld, T, 0, T, wide, ldw, R, D, w[0], w[1]);
-  __syncthreads();
-  const float* qkv_b = w[3];
-  product(a, R, D, w[2], 3 * D, mw, wbuf, [=](int r, int c, float v) {
-    wide[r * ldw + c] = v + __ldg(qkv_b + c);
-  });
-  __syncthreads();
-  attention16(wide, ldw, nseq, T, D, H, bias);
-  __syncthreads();
-  const float* out_b = w[5];
-  product(a, R, D, w[4], D, mw, wbuf, [=](int r, int c, float v) {
-    xs[r * ld + c] += v + __ldg(out_b + c);
-  });
-  __syncthreads();
-  layer_norm4(xs, ld, T, 0, T, wide, ldw, R, D, w[6], w[7]);
-  __syncthreads();
-  const float* mlp1_b = w[9];
-  product(a, R, D, w[8], 3 * D, mw, wbuf, [=](int r, int c, float v) {
-    wide[r * ldw + c] = history::gelu_tanh(v + __ldg(mlp1_b + c));
-  });
-  __syncthreads();
-  const float* mlp2_b = w[11];
-  product(a, R, 3 * D, w[10], D, mw, wbuf, [=](int r, int c, float v) {
-    xs[r * ld + c] += v + __ldg(mlp2_b + c);
-  });
-  __syncthreads();
-}
 
 // The encoder over sequences seq0 .. seq0 + nseq - 1 (nseq <= kG).
 __device__ void encode_chunk(const float* __restrict__ x,

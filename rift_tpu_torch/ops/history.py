@@ -36,10 +36,12 @@ STAGE_WNAMES = (
     "ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "out_w", "out_b",
     "ln2_scale", "ln2_bias", "mlp1_w", "mlp1_b", "mlp2_w", "mlp2_b",
 )
-SEQS_PER_BLOCK = 4  # sequences one CUDA block holds in shared memory
+# the stage kernel's shapes (csrc/history_common.cuh): T <= MAX_T logits
+# in registers, head dim HEAD_DIM, D / 4 lanes a LayerNorm row (D one of
+# STAGE_WIDTHS)
 MAX_T = 20
-ROWS_PER_THREAD = 5  # the kernel's product tile: T must be a multiple
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+HEAD_DIM = 16
+STAGE_WIDTHS = (16, 32, 64, 128)
 
 DEPTHS = (2, 2, 2)  # LocalBlocks per level: one fused stage each
 HEADS = (2, 4, 8)
@@ -255,11 +257,10 @@ def _forward(x, weights, bias0, bias1, num_heads):
         raise ValueError(f"local_stage: x {tuple(x.shape)}, [N, T, D] expected")
     N, T, D = x.shape
     H = num_heads
-    if not (1 <= T <= MAX_T and T % ROWS_PER_THREAD == 0) or D % 32 or D % H:
+    if not (1 <= T <= MAX_T and D in STAGE_WIDTHS and D == HEAD_DIM * H):
         raise ValueError(
             f"local_stage: T={T}, D={D}, H={H} outside the kernel's range "
-            f"(T <= {MAX_T} and a multiple of {ROWS_PER_THREAD}, D a multiple "
-            f"of 32 and of H)"
+            f"(1 <= T <= {MAX_T}, D one of {STAGE_WIDTHS}, head dim D/H = {HEAD_DIM})"
         )
     if len(weights) != 24:
         raise ValueError(f"local_stage: {len(weights)} weights, 24 expected")
@@ -274,10 +275,7 @@ def _forward(x, weights, bias0, bias1, num_heads):
         if t.device != x.device or not t.is_contiguous() or t.dtype != torch.float32:
             raise ValueError("local_stage: inputs must be contiguous f32 on one device")
     lib = _lib()
-    G = SEQS_PER_BLOCK
-    smem = lib.rift_history_stage_smem_bytes(T, D, G)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"local_stage: T={T}, D={D} needs {smem} B of shared memory")
+    G = stage_chunk(T, D)
     out = torch.empty_like(x)
     params = (ctypes.c_void_p * 26)(*[t.data_ptr() for t in tensors[1:]])
     err = lib.rift_history_stage_fwd(
@@ -289,6 +287,13 @@ def _forward(x, weights, bias0, bias1, num_heads):
     global launches
     launches += 1
     return out
+
+
+def stage_chunk(T: int, D: int) -> int:
+    """Sequences per chunk of the stage kernel at [T, D]: the most whose
+    rows fit the kernel's chunk (12 at each of the model's levels; fewer
+    ran slower, PERF.md §6)."""
+    return _lib().rift_history_stage_chunk_rows(D) // T
 
 
 def encoder_shapes(embed_dim=ENCODER_EMBED, in_dim=ENCODER_CIN):
@@ -382,6 +387,6 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
-        lib.rift_history_stage_smem_bytes.argtypes = [I, I, I]
-        lib.rift_history_stage_smem_bytes.restype = ctypes.c_longlong
+        lib.rift_history_stage_chunk_rows.argtypes = [I]
+        lib.rift_history_stage_chunk_rows.restype = I
     return lib

@@ -20,7 +20,8 @@ refline 1e-5 with the nearest indices equal (candidate
 points sit off the line's midpoints, so no two line points tie, or, in
 the "ties" cases, on them with every distance exact: the lower index
 wins in both); the
-HistoryEncoder stage 1e-4 at the main path's N = 1536 rows (two f32
+HistoryEncoder stage 1e-4 at the main path's N = 1536 rows, at its
+chunk layout's edges and at shapes beyond the model's levels (two f32
 LocalBlocks, products up to 384 deep summed in another order), and the
 whole-encoder kernel 1e-4 there (six blocks, the convolutions and the
 FPN). The launch counters show which kernels a path takes. The
@@ -443,16 +444,62 @@ def _stage_tensors(device, level, N, seed=0):
     return to(x), [to(w) for w in ws], biases, H
 
 
+def _stage_rows(case, T, D):
+    """The row count N of a stage case, from the kernel's chunk at [T, D]
+    (G sequences) and the card's SM count (one block each)."""
+    from rift_tpu_torch.ops.history import stage_chunk
+
+    G = stage_chunk(T, D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = {"G-1": G - 1, "G+1": G + 1, "SMs*G+7": sms * G + 7}
+    return edges[case] if case in edges else int(case)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1536", "1537", "1", "G-1", "G+1", "SMs*G+7", "8192"])
 @pytest.mark.parametrize("level", sorted(STAGE_LEVELS))
-def test_history_stage_kernel_matches_plain(cuda_device, level):
-    """The stage kernel at the main path's shape: S*A = 1536 rows, plus a
-    ragged last block (1537 rows)."""
-    for N in (1536, 1537):
-        x, ws, biases, H = _stage_tensors(cuda_device, level, N)
-        got = local_stage(x, ws, *biases, H)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, local_stage_ref(x, ws, *biases, H), atol=1e-4, rtol=0)
+def test_history_stage_kernel_matches_plain(cuda_device, level, case):
+    """The stage kernel at the main path's shape, S*A = 1536 rows, and at
+    its layout's edges: a ragged last block (1537 rows), one sequence, one
+    less and one more than a chunk of G sequences, a grid of one block per
+    SM whose blocks' shares are not whole numbers of chunks (SMs*G+7 rows:
+    a share of G+1 walks two chunks), and a fit step's 8192 rows."""
+    T, D = STAGE_LEVELS[level][:2]
+    x, ws, biases, H = _stage_tensors(cuda_device, level, _stage_rows(case, T, D))
+    got = local_stage(x, ws, *biases, H)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_stage_ref(x, ws, *biases, H), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H", [(15, 64, 4), (1, 128, 8), (20, 16, 1), (7, 32, 2)])
+def test_history_stage_kernel_contract_edges(cuda_device, T, D, H):
+    """Shapes the stage kernel admits beyond the model's three levels: T
+    not a multiple of 5, a single token, the narrowest width (D = 16), f32,
+    atol 1e-4."""
+    x, ws, rpb = stage_inputs(4, 777, T, D, H, 3)
+    to = lambda a: torch.from_numpy(a).to(cuda_device)
+    biases = [band_rpb_bias(to(p), T, 3) for p in rpb]
+    x, ws = to(x), [to(w) for w in ws]
+    got = local_stage(x, ws, *biases, H)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, local_stage_ref(x, ws, *biases, H), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H", [(21, 32, 2), (20, 32, 1), (10, 48, 3), (5, 256, 16)])
+def test_history_stage_rejects_shapes_outside_contract(cuda_device, T, D, H):
+    """T past 20, a head dim other than 16, or D not one of 16, 32, 64, 128:
+    the wrapper raises before any launch (no plain-version fallback)."""
+    from rift_tpu_torch.ops import history
+
+    x, ws, rpb = stage_inputs(5, 4, T, D, H, 3)
+    to = lambda a: torch.from_numpy(a).to(cuda_device)
+    biases = [band_rpb_bias(to(p), T, 3) for p in rpb]
+    before = history.launches
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        local_stage(to(x), [to(w) for w in ws], *biases, H)
+    assert history.launches == before
 
 
 @pytest.mark.cuda

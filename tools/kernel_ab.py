@@ -19,12 +19,18 @@ CBVs, a fit step's batch 256, and 12 and 48 CBVs (4 and 16 scenarios of
 the act's reference-line launch (N=768 rows of P=120 points, C=6, a random
 valid prefix per row) and at the fit's map-row launch (N=16384, P=20, C=10,
 every point valid); the whole encoder at the act's N=1536 and the fit's
-N=8192 history rows; the GRPO evaluator's re-tracking at the train act's
+N=8192 history rows, with a SHA-256 digest of its outputs; the
+HistoryEncoder stage's three launches (one per level, chip_smoke.py's
+`stage_inputs`) at N=1536 and 8192 rows, with a digest of their outputs
+and their error against the plain version (in a tree whose wrapper has
+`stage_chunk`, also each launch with chunks of 4, 8 and its own number
+of sequences: `ms_by_level_and_chunk`); the GRPO evaluator's re-tracking at the train act's
 G=9216 candidates of T=40 points and its reference-line matrices at
 BR=768 pairs, MT=480, Nr=120 (chip_smoke.py's `retrack_inputs` and
 `refline_inputs`), launched from Python (`ms`) and replayed from a CUDA
-graph (`device_ms`), each with a SHA-256 digest of its outputs, so that
-the turns show whether two versions of a kernel give the same bits. Each
+graph (`device_ms`), each with a digest of its outputs. The digests show
+whether two versions of a kernel give the same bits (the summary's
+`same_bits`). Each
 turn also checks the other kernels against the plain versions (max abs
 error, f32), and times on the host clock (ending in a synchronise) the
 eval act step, the train act step and a fine-tune step at batch 256 as
@@ -52,6 +58,7 @@ ATTENTION_BATCH = {"attention_act": 192, "attention_fit": 256, "attention_12": 1
                    "attention_48": 48}
 POINT_SHAPES = {"points_act": (768, 120, 6, True), "points_fit": (16384, 20, 10, False)}
 ENCODER_SHAPES = {"encoder_act": 1536, "encoder_fit": 8192}
+STAGE_SHAPES = {"stage_act": 1536, "stage_fit": 8192}
 EVALUATOR = ("retrack", "refline")
 
 
@@ -112,6 +119,36 @@ def encoder_inputs(torch, seed, N):
         else:
             W[name] = rn(*shape) / math.sqrt(math.prod(shape[:-1]))
     return rn(N, 20, 9), W
+
+
+def stage_calls(torch, seed, N):
+    """The HistoryEncoder stage's three launches (one per level) at N
+    history rows, on chip_smoke's `stage_inputs`: (x, weights, biases, H)
+    each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(*smoke.stage_inputs(torch, gen, N, T, D, H, w), H)
+            for (T, D, H), w in zip(smoke.HIST, smoke.WINDOWS)]
+
+
+def stage_chunk_sweep(torch, history, calls) -> dict:
+    """ms of each stage launch with chunks of 4, 8 and the wrapper's own
+    number of sequences (`stage_chunk`, patched for the sweep), keyed
+    "T=..,G=..", with the largest error against the plain version."""
+    chosen = history.stage_chunk
+    out = {}
+    try:
+        for x, w, b, H in calls:
+            T, D = x.shape[1:]
+            for G in sorted({4, 8, chosen(T, D)}):
+                history.stage_chunk = lambda T, D, G=G: G
+                err = (history.local_stage(x, w, *b, H)
+                       - history.local_stage_ref(x, w, *b, H)).abs().max().item()
+                out[f"T={T},G={G}"] = {
+                    "ms": cuda_ms(torch, lambda: history.local_stage(x, w, *b, H)),
+                    "max_abs_err": err}
+    finally:
+        history.stage_chunk = chosen
+    return out
 
 
 def digest(*tensors) -> str:
@@ -217,7 +254,16 @@ def turn() -> dict:
             got = history.history_encoder(x, W)
             err = (got - history.history_encoder_ref(x, W)).abs().max().item()
             ms = cuda_ms(torch, lambda: history.history_encoder(x, W))
-            out[name] = {"ms": ms, "max_abs_err": err}
+            out[name] = {"ms": ms, "max_abs_err": err, "digest": digest(got)}
+        for name, N in STAGE_SHAPES.items():
+            calls = stage_calls(torch, 5, N)
+            got = [history.local_stage(x, w, *b, H) for x, w, b, H in calls]
+            err = max((g - history.local_stage_ref(x, w, *b, H)).abs().max().item()
+                      for g, (x, w, b, H) in zip(got, calls))
+            ms = cuda_ms(torch, lambda: [history.local_stage(x, w, *b, H) for x, w, b, H in calls])
+            out[name] = {"ms": ms, "max_abs_err": err, "digest": digest(*got)}
+            if hasattr(history, "stage_chunk"):
+                out[name]["ms_by_level_and_chunk"] = stage_chunk_sweep(torch, history, calls)
     out.update(evaluator_kernels(torch))
     out.update(step_times(torch))
     return out
@@ -260,16 +306,21 @@ def main() -> int:
         print(json.dumps(r))
         turns.append(r)
     summary = {"card": card}
-    for name in (*ATTENTION_BATCH, *POINT_SHAPES, *ENCODER_SHAPES, *EVALUATOR,
+    for name in (*ATTENTION_BATCH, *POINT_SHAPES, *ENCODER_SHAPES, *STAGE_SHAPES, *EVALUATOR,
                  "eval_act_step", "train_act_step", "fit_step"):
         summary[name] = {"ms_by_turn": [(t["label"], t[name]["ms"]) for t in turns]}
-        for key in ("device_ms", "device_ms_by_launch", "digest"):
-            if key in turns[0][name]:
-                summary[name][f"{key}_by_turn"] = [(t["label"], t[name][key]) for t in turns]
+        for key in ("device_ms", "device_ms_by_launch", "digest", "ms_by_level_and_chunk"):
+            if any(key in t[name] for t in turns):
+                summary[name][f"{key}_by_turn"] = [(t["label"], t[name][key])
+                                                   for t in turns if key in t[name]]
         if "max_abs_err" in turns[0][name]:
             summary[name]["max_abs_err"] = max(t[name]["max_abs_err"] for t in turns)
         if "digest" in turns[0][name]:
+            # across all four turns, and within each tree's two
             summary[name]["same_bits"] = len({t[name]["digest"] for t in turns}) == 1
+            summary[name]["same_bits_each_tree"] = all(
+                len({t[name]["digest"] for t in turns if t["label"] == lb}) == 1
+                for lb in ("baseline", "this"))
     print(card)
     print(json.dumps(summary))
     return 0
