@@ -4,7 +4,8 @@ holds each against its plain PyTorch version, drives the Pluto CBV
 planner's eval step, its train step (the GRPO evaluator) and a fine-tune
 round at full width, then the closed loop (Runner.eval and
 Runner.train_cbv at the bench configuration), the fine-tuning zoo and the
-CLI.
+CLI, on canonical tokens; then the same paths with the JAX CLI's
+defaults: legacy (per-CBV) tokens, the PDM-Lite ego, walkers and statics.
 
     python3 chip_smoke.py
 
@@ -14,20 +15,24 @@ Phases (any failure raises and exits non-zero):
   2. hold each kernel against its plain version at the main path's shapes:
      attention in f32 (atol 1e-5) and bf16 (atol 2e-2), also at the tile
      edges of ATTN_EDGES, the PointNet in
-     f32 at the act's and a fit step's shapes (atol 1e-4), the retrack
+     f32 at the act's and a fit step's shapes and at a legacy act's map
+     polygons (N = S*C*64 = 12288 rows of [20, 10], a quarter of them
+     masked whole, which must give exactly 0; atol 1e-4), the retrack
      rollout (at most 1% of the 9216 candidates diverging by more than
      2e-3), the refline matrices (at most 1% of the nearest points
      flipped, 1e-4 elsewhere), the HistoryEncoder stage at its three
      levels in f32 at one act call's N = 1536 and a bc_pluto fit step's
      N = 8192 history rows (atol 1e-4) and the whole-encoder kernel at N =
-     1536, a ragged N = 1537 and N = 8192 in f32 (atol 1e-4); time
+     1536, a ragged N = 1537, N = 8192 and a legacy act's N = S*C*32 =
+     6144 in f32 (atol 1e-4); time
      kernel, plain version and, where one PyTorch call
      computes the same function, that call (scaled_dot_product_attention,
      nn.TransformerEncoder; timed only, the port never calls them; the
      attention's 17 launches of a few µs each, the retrack and the
      refline launch launched from Python and, as device time, replayed
      from a CUDA graph), with the PointNet, the stage
-     and the whole encoder timed at the fit's shape too; then
+     and the whole encoder timed at the fit's and the legacy act's shapes
+     too; then
      the gradients through the attention, PointNet and stage autograd
      Functions against the plain versions' gradients (f32, atol 1e-4);
   3. build the grid town (blocks=2, 2 lanes per direction) and reset
@@ -76,7 +81,24 @@ Phases (any failure raises and exits non-zero):
      `run.main` in train_cbv (rift_pluto, the behavior ego, S=64, 80 ticks,
      a 1024-sample buffer: one fit round, a checkpoint, a saved pretrain),
      eval from that pretrain, and eval --resume, which reads the
-     statistics back and runs only the missing episode.
+     statistics back and runs only the missing episode;
+ 11. the act steps on legacy tokens on phase 3's scenes with phase 4's
+     model (per call 17 attention, 1 whole-encoder and 2 PointNet
+     launches, the second for the CBVs' map polygons; train mode also 1
+     retrack and 1 refline), the f32 eval and train acts through the
+     kernels against the plain versions at phases 5 and 7's bounds, and
+     one fit round on a 512-sample buffer of legacy samples (4 steps, the
+     launches of phase 8's), pi_head moved and nothing else;
+ 12. the closed loop with the JAX CLI's eval defaults at the bench
+     configuration: Runner.eval on legacy tokens with the PDM-Lite ego and
+     2 walkers and 2 static obstacles per scenario, one K=40 chunk, exact
+     launch counts; eval and world-only env-steps/s with the PDM ego as
+     phase 9 times them; the kernels launched per env step (all of them,
+     counted by torch.profiler) with the PDM and the rule ego; and one f32
+     chunk through the kernels and the plain versions at phase 9's bounds;
+ 13. `run.main` with no ego and no override (pdm_lite, legacy tokens,
+     in eval 2 walkers and 2 statics): eval for 40 ticks (exact launch
+     counts), then train_cbv for 160 ticks.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -109,6 +131,10 @@ CHUNK = 40  # closed-loop ticks per rollout_chunk call, as bench.py's K
 ACT_ATTENTION, ACT_STAGES = 17, 3  # launches per planner forward (stages: with gradients)
 FIT_MAP_ROWS = 256 * 64  # a fit step's per-sample map rows: batch x lanes
 FIT_HISTORY_ROWS = 256 * 32  # a fit step's history rows: batch x agents
+# an act call's rows on legacy (per-CBV) tokens: each CBV's 64 map polygons
+# through the PointNet and its 32 agents' histories through the encoder
+LEGACY_MAP_ROWS, LEGACY_HISTORY_ROWS = S * C * 64, S * C * 32
+LEGACY_POLYGONS_OUT = 0.25  # share of polygon slots masked whole in the check
 # f32 closed loop, kernels vs plain versions: the most agents that may end
 # apart, as a share of the agents that were CBVs and of all agents
 LOOP_CBVS_APART, LOOP_AGENTS_APART = 0.05, 0.01
@@ -316,6 +342,21 @@ def check_points(torch, points, num_lanes):
         if not e <= 1e-4:
             raise AssertionError(f"points {(N, P, Cin)}: max err {e} > 1e-4")
 
+    # the legacy map shape: whole polygons in or out, as the features' masks
+    # (a slot past the lanes in range is masked whole and encodes to 0)
+    lx, lmask, lw = points_inputs(torch, gen, LEGACY_MAP_ROWS, 20, 10, False)
+    out_rows = torch.rand(LEGACY_MAP_ROWS, generator=gen, device="cuda") < LEGACY_POLYGONS_OUT
+    lmask[out_rows] = False
+    got = points.points_encoder(lx, lmask, lw, DIM)
+    ref = points.points_forward_ref(lx, lmask, lw)
+    torch.cuda.synchronize()
+    legacy_err = (got - ref).abs().max().item()
+    if not (legacy_err <= 1e-4 and not got[out_rows].any() and not ref[out_rows].any()):
+        raise AssertionError(f"points legacy map rows: max err {legacy_err} > 1e-4, or a "
+                             "masked polygon not 0")
+    err = max(err, legacy_err)
+    legacy_bound, legacy_by = points_bound(lx, lmask, lw)
+
     x, mask, w = points_inputs(torch, gen, S * C * REFS, POINTS, 6, True)
     bound, by = points_bound(x, mask, w)
     fx, fmask, fw = points_inputs(torch, gen, FIT_MAP_ROWS, 20, 10, False)
@@ -338,6 +379,16 @@ def check_points(torch, points, num_lanes):
         "fit_bound_ms_f32_cuda_cores": points_bound(fx, fmask, fw, "float32")[0],
         "fit_timed_work": f"a fit step's map-row launch, N={FIT_MAP_ROWS}, P=20, C=10, "
                           "every point valid, f32",
+        "legacy_ms": cuda_ms(torch, lambda: points.points_encoder(lx, lmask, lw, DIM)),
+        "legacy_plain_ms": cuda_ms(torch, lambda: points.points_forward_ref(lx, lmask, lw),
+                                   iters=10),
+        "legacy_bound_ms": legacy_bound,
+        "legacy_bound_by": legacy_by,
+        "legacy_bound_ms_f32_cuda_cores": points_bound(lx, lmask, lw, "float32")[0],
+        "legacy_max_abs_err": legacy_err,
+        "legacy_timed_work": f"the map-polygon launch of one act call on legacy tokens, "
+                             f"N={LEGACY_MAP_ROWS}, P=20, C=10, {int(out_rows.sum())} "
+                             "polygons masked whole, f32",
     }
 
 
@@ -627,7 +678,7 @@ def check_history_encoder(torch, history):
     the FPN resizes and the final conv at the rows the last token reads."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     err = 0.0
-    for N in (S * A, S * A + 1, FIT_HISTORY_ROWS):
+    for N in (S * A, S * A + 1, FIT_HISTORY_ROWS, LEGACY_HISTORY_ROWS):
         x, W = encoder_inputs(torch, gen, N)
         got = history.history_encoder(x, W)
         ref = history.history_encoder_ref(x, W)
@@ -640,6 +691,8 @@ def check_history_encoder(torch, history):
     bound, by, gflop = encoder_bound(history, x, W)
     fx, fW = encoder_inputs(torch, gen, FIT_HISTORY_ROWS)
     fit_bound, fit_by, fit_gflop = encoder_bound(history, fx, fW)
+    lx, lW = encoder_inputs(torch, gen, LEGACY_HISTORY_ROWS)
+    legacy_bound, legacy_by, legacy_gflop = encoder_bound(history, lx, lW)
     return {
         "ms": cuda_ms(torch, lambda: history.history_encoder(x, W)),
         "plain_ms": cuda_ms(torch, lambda: history.history_encoder_ref(x, W)),
@@ -657,6 +710,14 @@ def check_history_encoder(torch, history):
         "fit_bound_ms_f32_cuda_cores": encoder_bound(history, fx, fW, "float32")[0],
         "fit_gflop": fit_gflop,
         "fit_timed_work": f"one launch, N={FIT_HISTORY_ROWS} rows (a fit step's), f32",
+        "legacy_ms": cuda_ms(torch, lambda: history.history_encoder(lx, lW), iters=10),
+        "legacy_plain_ms": cuda_ms(torch, lambda: history.history_encoder_ref(lx, lW), iters=5),
+        "legacy_bound_ms": legacy_bound,
+        "legacy_bound_by": legacy_by,
+        "legacy_bound_ms_f32_cuda_cores": encoder_bound(history, lx, lW, "float32")[0],
+        "legacy_gflop": legacy_gflop,
+        "legacy_timed_work": f"one launch, N={LEGACY_HISTORY_ROWS} rows (an act call's on "
+                             "legacy tokens), f32",
     }
 
 
@@ -784,12 +845,14 @@ def train_samples(torch, out):
     return samples, flat(out["cbv_slots"] >= 0)
 
 
-def act_launches(n_calls, train=False, map_tokens=False):
+def act_launches(n_calls, train=False, map_tokens=False, legacy=False):
     """Kernel launches of n planner act calls (eval or train) and, when the
-    canonical map tokens are computed in the same run, their PointNet."""
+    canonical map tokens are computed in the same run, their PointNet. On
+    legacy tokens each call also encodes its CBVs' map polygons: a second
+    PointNet launch."""
     return {
         "fused_attention": ACT_ATTENTION * n_calls,
-        "points_encoder": n_calls + int(map_tokens),
+        "points_encoder": (2 if legacy else 1) * n_calls + int(map_tokens),
         "retrack_rollout": n_calls if train else 0,
         "refline_matrices": n_calls if train else 0,
         "local_stage": 0,
@@ -894,7 +957,8 @@ def closed_loop(torch, tmap, counters, plain_versions, kernel_versions):
 
     def steps_per_s(chunks, **kw):
         run = lambda s, c, k: rollout_chunk(runner.model, tmap, spec, s, c, max_cbvs=C,
-                                            num_steps=CHUNK, map_tok=tok, tick=k * CHUNK, **kw)
+                                            num_steps=CHUNK, canonical=True, map_tok=tok,
+                                            tick=k * CHUNK, **kw)
         run(state0, crit0, 0)
         best = math.inf
         for _ in range(2):
@@ -927,7 +991,7 @@ def closed_loop(torch, tmap, counters, plain_versions, kernel_versions):
         s, c, ever_cbv = state0, crit0, state0.is_cbv.clone()
         for k in range(CHUNK):
             s, c, _ = rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C, num_steps=1,
-                                    map_tok=tok32, tick=k)
+                                    canonical=True, map_tok=tok32, tick=k)
             ever_cbv |= s.is_cbv
         return s, ever_cbv
 
@@ -994,7 +1058,7 @@ def zoo_and_cli(torch, tmap, counters, scene):
     src = pols["rift_pluto"]
     _, _, extras = rollout_chunk(src.model, tmap, spec, state, init_criteria(S, A, "cuda"),
                                  max_cbvs=C, num_steps=2, train=True,
-                                 map_tok=src.map_tokens(), tick=0)
+                                 canonical=True, map_tok=src.map_tokens(), tick=0)
     for key, pol in pols.items():
         pol.store_chunk(extras)
         if not pol.buffer_full():
@@ -1054,6 +1118,285 @@ def zoo_and_cli(torch, tmap, counters, scene):
                              f"records, the first episode's kept: {records[:S] == first}")
     out["cli_eval"] = {"avg_driving_score": g.avg_driving_score,
                        "avg_route_completion": g.avg_route_completion}
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def legacy_path(torch, tmap, counters, scenes, model, plain_versions, kernel_versions):
+    """Phase 11: the act steps and a fit on legacy (per-CBV) tokens, the JAX
+    package's default, on phase 3's scenes with phase 4's bf16 model: per
+    act call each CBV's 64 map polygons go through the PointNet (S*C*64
+    rows, real masks) and its 32 agents' histories through the whole
+    encoder (S*C*32 rows); no map tokens. Exact launch counts, the f32 act
+    steps through the kernels against the plain versions at phases 5 and
+    7's bounds, and one fit round that moves pi_head alone."""
+    from rift_tpu_torch.models.pluto import PlutoModel, pluto_cbv_act
+    from rift_tpu_torch.rl import TrainConfig, fit, rift_loss_fn, ring_append, ring_init
+    from rift_tpu_torch.rl.buffer import _leaves
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    zero_launches(counters)
+    outs = [pluto_cbv_act(model, tmap, spec, state, max_cbvs=C) for state, spec in scenes]
+    torch.cuda.synchronize()
+    launches["legacy_eval_act"] = read_launches(counters)
+    check_counts("legacy eval act", launches["legacy_eval_act"],
+                 act_launches(len(scenes), legacy=True))
+    for res in outs:
+        if not torch.isfinite(res["traj"]).all() or int(res["mask"].sum()) != S * C:
+            raise AssertionError("legacy eval act: non-finite waypoints or a wrong CBV mask")
+    in_range = outs[0]["features"]["map"]["valid_mask"].any(-1).float().mean().item()
+    state, spec = scenes[0]
+    out["eval_act_ms"] = time_calls(
+        torch, lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=C), 10, warmup=2)
+    out["map_polygon_slots_in_range_share"] = in_range
+
+    model32 = PlutoModel(encoder_depth=4, decoder_depth=4, dtype=torch.float32).eval()
+    model32.load_state_dict(model.state_dict())
+
+    def kernels_and_plain(**kw):
+        got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, **kw)
+        plain_versions()
+        try:
+            ref = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, **kw)
+        finally:
+            kernel_versions()
+        torch.cuda.synchronize()
+        return got, ref
+
+    got, ref = kernels_and_plain()
+    mask = ref["mask"]
+    if not torch.equal(got["mask"], mask):
+        raise AssertionError("legacy f32 CBV masks differ between kernels and plain versions")
+    out["f32_traj_max_abs_err"] = (got["traj"][mask] - ref["traj"][mask]).abs().max().item()
+    if not out["f32_traj_max_abs_err"] <= 1e-3:
+        raise AssertionError(f"legacy f32 waypoints differ by {out['f32_traj_max_abs_err']}")
+
+    zero_launches(counters)
+    train_outs = [pluto_cbv_act(model, tmap, spec_, state_, max_cbvs=C, train=True)
+                  for state_, spec_ in scenes]
+    torch.cuda.synchronize()
+    launches["legacy_train_act"] = read_launches(counters)
+    check_counts("legacy train act", launches["legacy_train_act"],
+                 act_launches(len(scenes), train=True, legacy=True))
+    for res in train_outs:
+        valid = res["adv_valid"]
+        adv, ret = res["advantage"][valid], res["rollout_return"][valid]
+        if int(valid.sum()) < S * C * MODES or not (torch.isfinite(adv).all()
+                                                    and torch.isfinite(ret).all()):
+            raise AssertionError("legacy train act: too few valid candidates or non-finite")
+    out["train_act_ms"] = time_calls(
+        torch, lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, train=True), 5,
+        warmup=2)
+    got, ref = kernels_and_plain(train=True)
+    if not torch.equal(got["adv_valid"], ref["adv_valid"]):
+        raise AssertionError("legacy f32 train act: adv_valid differs between kernels and plain")
+    v = ref["adv_valid"]
+    ret_err = (got["rollout_return"] - ref["rollout_return"])[v].abs()
+    out["f32_return_off_share"] = (ret_err > 1e-2).float().mean().item()
+    if not out["f32_return_off_share"] <= 0.02:
+        raise AssertionError(f"legacy f32 train act: {out['f32_return_off_share']} of "
+                             "returns off by > 1e-2")
+    del model32, got, ref
+
+    # one fit round on the legacy samples of the three train acts
+    samples = [train_samples(torch, res) for res in train_outs]
+    first = lambda t: {k: first(x) for k, x in t.items()} if isinstance(t, dict) else t[0]
+    buf = ring_init(first(samples[0][0]), capacity=512)
+    for smp, valid in samples:
+        ring_append(buf, smp, valid)
+    if not buf.full:
+        raise AssertionError(f"legacy buffer holds {buf.size} of {buf.capacity}")
+    cfg = TrainConfig(epochs=2, warmup_epochs=1)
+    steps = cfg.epochs * (buf.size // cfg.batch_size)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(1)
+    zero_launches(counters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = fit(model, buf, rift_loss_fn, cfg, gen)
+    torch.cuda.synchronize()
+    out["fit_ms_per_step"] = (time.perf_counter() - t1) * 1e3 / steps
+    launches["legacy_fit"] = read_launches(counters)
+    check_counts("legacy fit", launches["legacy_fit"], fit_launches(steps))
+    moved, changed = params_moved(torch, model, before)
+    if not (all(math.isfinite(x) for x in losses) and moved > 0.0) or changed:
+        raise AssertionError(f"legacy fit: losses {losses}, pi_head moved {moved}, other "
+                             f"params changed: {changed}")
+    out["fit"] = {"steps": steps, "epoch_losses": losses, "pi_head_abs_delta": moved,
+                  "sample_bytes": sum(t.numel() * t.element_size()
+                                      for t in _leaves(buf.data)) // buf.capacity}
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def device_launches(torch, fn, calls=3):
+    """CUDA kernels launched per call of `fn` (every kernel, the library's
+    too), counted by torch.profiler; "not measured" when it traces none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / calls if n else "not measured"
+
+
+def default_loop(torch, tmap, counters, plain_versions, kernel_versions):
+    """Phase 12: the closed loop with the JAX CLI's eval defaults at the
+    bench configuration: Runner.eval on legacy tokens with the PDM-Lite ego
+    (its waypoints computed every tick) and 2 walkers and 2 static
+    obstacles per scenario, one chunk of K=40 ticks, exact launch counts;
+    its env-steps/s (and the world's alone with the PDM ego) as phase 9
+    times them; the kernels launched per env step with the PDM ego and the
+    rule ego; and one f32 chunk through the kernels against the plain
+    versions at phase 9's bounds."""
+    from rift_tpu_torch.models.pluto import PlutoModel
+    from rift_tpu_torch.rollout import ego_waypoints, rollout_chunk
+    from rift_tpu_torch.runner import Runner, RunnerConfig
+    from rift_tpu_torch.scenario import env_step
+    from rift_tpu_torch.sim.state import CLASS_STATIC, CLASS_WALKER
+
+    t0 = time.perf_counter()
+    cfg = RunnerConfig(num_scenarios=S, num_agents=A, max_cbvs=C, max_episode_ticks=CHUNK,
+                       ego="pdm", num_walkers=2, num_statics=2)
+    runner = Runner(tmap, cfg)
+    out, launches = {}, {}
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    stats = runner.eval(num_episodes=1, chunk=CHUNK)
+    torch.cuda.synchronize()
+    out["runner_eval_s"] = time.perf_counter() - t1
+    launches["pdm_loop_eval"] = read_launches(counters)
+    check_counts("Runner.eval (pdm, legacy)", launches["pdm_loop_eval"],
+                 act_launches(CHUNK, legacy=True))
+    recs = runner.stats.records
+    promoted = sum(r.cbv_count for r in recs)
+    if stats.total_routes != S or promoted == 0 or not all(
+            math.isfinite(r.driving_score) for r in recs):
+        raise AssertionError(f"Runner.eval (pdm): {stats.total_routes} routes, {promoted} "
+                             "CBVs promoted, or non-finite driving scores")
+    out["eval_stats"] = {"avg_driving_score": stats.avg_driving_score,
+                         "avg_route_completion": stats.avg_route_completion,
+                         "cbvs_promoted": promoted}
+
+    state0, crit0, spec = runner.env.reset()
+    cls = state0.agent_class
+    if not (bool(((cls == CLASS_WALKER).sum(1) == 2).all())
+            and bool(((cls == CLASS_STATIC).sum(1) == 2).all())):
+        raise AssertionError("the PDM loop's scenes lack 2 walkers and 2 statics each")
+
+    def steps_per_s(**kw):
+        run = lambda s, c: rollout_chunk(runner.model, tmap, spec, s, c, max_cbvs=C,
+                                         num_steps=CHUNK, ego="pdm", tick=0, **kw)
+        run(state0, crit0)
+        best = math.inf
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(state0, crit0)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t1)
+        return CHUNK * S / best
+
+    out["eval_env_steps_per_s"] = steps_per_s()
+    out["world_only_env_steps_per_s"] = steps_per_s(with_policy=False)
+    tick = iter(range(1, 10**6))
+    step = lambda ego: env_step(tmap, spec, state0, crit0, max_cbvs=C, tick=next(tick),
+                                ego_traj=ego_waypoints(ego, tmap, spec, state0))
+    out["device_launches_per_env_step"] = {
+        "pdm": device_launches(torch, lambda: step("pdm")),
+        "rule": device_launches(torch, lambda: step("rule")),
+        "pdm_ego_waypoints_alone": device_launches(
+            torch, lambda: ego_waypoints("pdm", tmap, spec, state0)),
+    }
+
+    model32 = PlutoModel(encoder_depth=cfg.encoder_depth, decoder_depth=cfg.decoder_depth,
+                         dtype=torch.float32).eval()
+    model32.load_state_dict(runner.model.state_dict())
+
+    def f32_chunk():
+        s, c, ever_cbv = state0, crit0, state0.is_cbv.clone()
+        for k in range(CHUNK):
+            s, c, _ = rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C, num_steps=1,
+                                    ego="pdm", tick=k)
+            ever_cbv |= s.is_cbv
+        return s, ever_cbv
+
+    got, got_cbv = f32_chunk()
+    plain_versions()
+    try:
+        ref, ref_cbv = f32_chunk()
+    finally:
+        kernel_versions()
+    torch.cuda.synchronize()
+    cbv = got_cbv | ref_cbv
+    if not torch.isfinite(got.pos).all() or not bool(cbv.any()):
+        raise AssertionError("f32 PDM loop: non-finite positions or no CBV")
+    apart = torch.linalg.norm(got.pos - ref.pos, dim=-1) > 1e-2
+    apart |= got.is_cbv != ref.is_cbv
+    out["f32_cbvs"] = int(cbv.sum())
+    out["f32_cbvs_apart_share"] = apart[cbv].float().mean().item()
+    out["f32_agents_apart_share"] = apart.float().mean().item()
+    out["f32_egos_apart"] = int(apart[:, 0].sum())
+    if not (out["f32_cbvs_apart_share"] <= LOOP_CBVS_APART
+            and out["f32_agents_apart_share"] <= LOOP_AGENTS_APART):
+        raise AssertionError(f"f32 PDM loop: {out['f32_cbvs_apart_share']} of CBVs, "
+                             f"{out['f32_agents_apart_share']} of agents apart")
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def default_cli(torch, counters):
+    """Phase 13: the CLI with the JAX CLI's defaults and no override (the
+    pdm_lite ego, Pluto on legacy tokens, in eval 2 walkers and 2 statics)
+    at the bench configuration: one eval episode of 40 ticks, then one
+    train_cbv episode of 160 ticks (its fit rounds, each on a full
+    4096-sample buffer, recorded: CBVs are recognised from tick 26 on)."""
+    import os
+    import shutil
+
+    from rift_tpu_torch import run
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    cli_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_cli_defaults")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    common = ["--cbv_cfg", "rift_pluto", "--num_scenario", str(S), "--num_agents", str(A),
+              "--blocks", "2", "--num_episodes", "1", "--out_dir", cli_dir]
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    g = run.main(["--mode", "eval", "--max_ticks", str(CHUNK), *common])
+    torch.cuda.synchronize()
+    out["cli_eval_s"] = time.perf_counter() - t1
+    launches["cli_defaults_eval"] = read_launches(counters)
+    check_counts("CLI eval defaults", launches["cli_defaults_eval"],
+                 act_launches(CHUNK, legacy=True))
+    results = os.path.join(cli_dir, "eval", "pdm_lite-rift_pluto-seed0",
+                           "simulation_results.json")
+    if g.total_routes != S or not os.path.exists(results):
+        raise AssertionError(f"CLI eval defaults: {g.total_routes} routes, results written: "
+                             f"{os.path.exists(results)}")
+    out["cli_eval"] = {"avg_driving_score": g.avg_driving_score,
+                       "avg_route_completion": g.avg_route_completion}
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    g = run.main(["--mode", "train_cbv", "--max_ticks", "160", *common])
+    torch.cuda.synchronize()
+    out["cli_train_cbv_s"] = time.perf_counter() - t1
+    launches["cli_defaults_train_cbv"] = read_launches(counters)
+    ckpt = os.path.join(cli_dir, "train_cbv", "pdm_lite-rift_pluto-seed0", "model_ckpt")
+    acts = launches["cli_defaults_train_cbv"]["retrack_rollout"]
+    if g.total_routes != S or acts == 0 or not math.isfinite(g.avg_driving_score):
+        raise AssertionError(f"CLI train_cbv defaults: {g.total_routes} routes, {acts} train "
+                             f"acts, driving score {g.avg_driving_score}")
+    out["cli_train_cbv"] = {"train_acts": acts, "avg_driving_score": g.avg_driving_score,
+                            "checkpoints": sorted(os.listdir(ckpt)) if os.path.isdir(ckpt)
+                            else []}
     out["seconds"] = time.perf_counter() - t0
     return out, launches
 
@@ -1123,7 +1466,7 @@ def main() -> int:
     zero_launches(counters)
     map_tok = canonical_map_tokens(model, tmap)
     outs = [
-        pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, map_tok=map_tok)
+        pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, canonical=True, map_tok=map_tok)
         for state, spec in scenes
     ]
     torch.cuda.synchronize()
@@ -1137,7 +1480,8 @@ def main() -> int:
             raise AssertionError("non-finite waypoints or a wrong CBV mask")
     state, spec = scenes[0]
     act_ms = time_calls(
-        torch, lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, map_tok=map_tok),
+        torch, lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, canonical=True,
+                                     map_tok=map_tok),
         10, warmup=2,
     )
     print(f"# eval path done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
@@ -1163,11 +1507,11 @@ def main() -> int:
         (layers.fused_attention, layers.points_encoder, layers.local_stage,
          layers.history_encoder, evaluator.refline_matrices, evaluator.retrack_rollout) = kernel_fns
 
-    got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, map_tok=tok32)
+    got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, canonical=True, map_tok=tok32)
     plain_versions()
     try:
         ref = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C,
-                            map_tok=canonical_map_tokens(model32, tmap))
+                            canonical=True, map_tok=canonical_map_tokens(model32, tmap))
     finally:
         kernel_versions()
     torch.cuda.synchronize()
@@ -1182,7 +1526,8 @@ def main() -> int:
     # through the retrack and refline kernels)
     zero_launches(counters)
     train_outs = [
-        pluto_cbv_act(model, tmap, spec_, state_, max_cbvs=C, train=True, map_tok=map_tok)
+        pluto_cbv_act(model, tmap, spec_, state_, max_cbvs=C, train=True, canonical=True,
+                      map_tok=map_tok)
         for state_, spec_ in scenes
     ]
     torch.cuda.synchronize()
@@ -1198,7 +1543,7 @@ def main() -> int:
             raise AssertionError("train act: advantages or returns do not vary")
     train_ms = time_calls(
         torch, lambda: pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, train=True,
-                                     map_tok=map_tok), 5, warmup=2,
+                                     canonical=True, map_tok=map_tok), 5, warmup=2,
     )
     print(f"# train act done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
@@ -1207,11 +1552,12 @@ def main() -> int:
     # threshold met on one side only), and collision and off-road flags are
     # discrete, so a flipped candidate's return moves by up to ~20: the
     # share of candidates off by more than 1e-2 is bounded, not forbidden.
-    got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, train=True, map_tok=tok32)
+    got = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, train=True, canonical=True,
+                        map_tok=tok32)
     plain_versions()
     try:
         ref = pluto_cbv_act(model32, tmap, spec, state, max_cbvs=C, train=True,
-                            map_tok=canonical_map_tokens(model32, tmap))
+                            canonical=True, map_tok=canonical_map_tokens(model32, tmap))
     finally:
         kernel_versions()
     torch.cuda.synchronize()
@@ -1264,6 +1610,23 @@ def main() -> int:
     launches.update(zoo_launches)
     print(f"# zoo and CLI done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
+    # ---- phase 11: the act steps and a fit on legacy tokens
+    legacy, legacy_launches = legacy_path(torch, tmap, counters, scenes, model,
+                                          plain_versions, kernel_versions)
+    launches.update(legacy_launches)
+    print(f"# legacy path done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+    # ---- phase 12: the closed loop with the default egos and scenes
+    pdm_loop, pdm_launches = default_loop(torch, tmap, counters, plain_versions,
+                                          kernel_versions)
+    launches.update(pdm_launches)
+    print(f"# PDM loop done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+    # ---- phase 13: the CLI with its defaults
+    cli, cli_launches = default_cli(torch, counters)
+    launches.update(cli_launches)
+    print(f"# default CLI done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -1307,6 +1670,9 @@ def main() -> int:
         },
         "closed_loop": loop,
         "zoo_and_cli": zoo,
+        "legacy_tokens": legacy,
+        "closed_loop_defaults": pdm_loop,
+        "cli_defaults": cli,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

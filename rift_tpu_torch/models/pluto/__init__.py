@@ -1,9 +1,8 @@
 from .features import build_cbv_features
-from .model import CANONICAL_ONLY, PlutoModel
+from .model import PlutoModel
 from .policy import canonical_map_tokens, pluto_cbv_act, select_trajectory
 
 __all__ = [
-    "CANONICAL_ONLY",
     "PlutoModel",
     "build_cbv_features",
     "canonical_map_tokens",

@@ -1,12 +1,14 @@
-"""Pluto feature construction, canonical token mode (port of
-rift_tpu/models/pluto/features.py).
+"""Pluto feature construction (port of rift_tpu/models/pluto/features.py).
 
 Features are built on the device from the SimState and the TensorMap, in
 each center CBV's frame. The JAX package `vmap`s one function over
 (scenario, CBV); here the S*C center agents are one batch dimension written
-out. Canonical mode encodes each map lane and each world agent's history
-once (`canonical_map_features`, `shared_history_features`); the per-CBV
-features are gather indices plus current poses.
+out. The legacy (per-CBV, the JAX default) features carry every
+neighbour's whole history and every lane polygon's points in the CBV's
+frame, for the model to encode per CBV. Canonical mode encodes each map
+lane and each world agent's history once (`canonical_map_features`,
+`shared_history_features`); its per-CBV features are gather indices plus
+current poses.
 """
 
 from __future__ import annotations
@@ -41,10 +43,12 @@ def build_features_for_agents(
     max_polygons: int = 64,
     num_refs: int = 4,
     radius: float = 120.0,
+    canonical: bool = False,
 ):
-    """Canonical feature dict for B center agents, each in its own frame
-    (the JAX package's build_features_for_agent with canonical=True, over
-    a batch)."""
+    """Feature dict for B center agents, each in its own frame (the JAX
+    package's build_features_for_agent over a batch). With `canonical` the
+    per-CBV history and polygon-point arrays are replaced by gather
+    indices (`agent.order`, `map.lane_idx`) and current poses."""
     dev = state.pos.device
     B = scenario.shape[0]
     pos = state.pos[scenario]  # [B, A, 2]
@@ -83,8 +87,20 @@ def build_features_for_agents(
     slot_valid = torch.cat([torch.ones_like(nbr_valid[:, :1]), nbr_valid], dim=1)
     sc = scenario[:, None]
     a_valid = state.hist_valid[sc, order] & slot_valid[..., None]
-    a_cur_pos = to_local(state.pos[sc, order])
-    a_cur_heading = wrap_angle(state.heading[sc, order] - c_heading[:, None])
+    if canonical:
+        agent_dict = {
+            "order": order,
+            "cur_pos": to_local(state.pos[sc, order]),
+            "cur_heading": wrap_angle(state.heading[sc, order] - c_heading[:, None]),
+        }
+    else:
+        H = a_valid.shape[-1]
+        agent_dict = {
+            "position": to_local(state.hist_pos[sc, order]),  # [B, N, H, 2]
+            "heading": wrap_angle(state.hist_heading[sc, order] - c_heading[:, None, None]),
+            "velocity": rot_local(state.hist_vel[sc, order]),
+            "shape": state.shape[sc, order][:, :, None].expand(B, max_agents, H, 2),
+        }
     cls = state.agent_class[sc, order]
     category = torch.where(cls == 1, CAT_PEDESTRIAN, CAT_VEHICLE)
     category[:, 0] = CAT_EGO
@@ -101,25 +117,45 @@ def build_features_for_agents(
     li = torch.clamp(lane_idx, min=0)  # [B, M]
     P = LANE_POINTS - 1
     mid = P // 2
-    seg = tmap.centerline[li, mid + 1] - tmap.centerline[li, mid]
-    ori = torch.atan2(seg[..., 1], seg[..., 0]) - c_heading[:, None]
-    polygon_center = torch.cat(
-        [to_local(tmap.centerline[li, mid]), wrap_angle(ori)[..., None]], dim=-1
-    )
+    if canonical:
+        # only the polygon-centre pose depends on the frame; the point
+        # features come from the frame-invariant shared tokens
+        seg = tmap.centerline[li, mid + 1] - tmap.centerline[li, mid]
+        ori = torch.atan2(seg[..., 1], seg[..., 0]) - c_heading[:, None]
+        polygon_center = torch.cat(
+            [to_local(tmap.centerline[li, mid]), wrap_angle(ori)[..., None]], dim=-1
+        )
+        map_dict = {"lane_idx": li}
+    else:
+        centerline = to_local(tmap.centerline[li])  # [B, M, P+1, 2]
+        edges = torch.stack(
+            [centerline, to_local(tmap.left_edge[li]), to_local(tmap.right_edge[li])], dim=2
+        )  # [B, M, 3, P+1, 2]
+        point_vector = edges[..., 1:, :] - edges[..., :-1, :]
+        point_orientation = torch.atan2(point_vector[..., 1], point_vector[..., 0])
+        polygon_center = torch.cat(
+            [centerline[:, :, mid], point_orientation[:, :, 0, mid, None]], dim=-1
+        )
+        map_dict = {
+            "point_position": edges[..., :-1, :],
+            "point_vector": point_vector,
+            "point_orientation": point_orientation,
+        }
     polygon_type = torch.where(tmap.is_junction[li], PT_LANE_CONNECTOR, PT_LANE)
     cur_lane = state.lane[scenario, agent]
     own_chain = spec.lane_chains[scenario, torch.clamp(cur_lane, min=0), 0]
     on_own_route = (li[:, :, None] == own_chain[:, None, :]).any(-1)
     polygon_on_route = (spec.route_lane_mask[sc, li] | on_own_route) & lane_in
-    map_dict = {
-        "lane_idx": li,
-        "polygon_center": polygon_center,
-        "polygon_type": polygon_type,
-        "polygon_on_route": polygon_on_route,
-        "polygon_tl_status": torch.full_like(li, TL_GREEN),
-        "polygon_speed_limit": tmap.speed_limit[li],
-        "valid_mask": lane_in[..., None].expand(B, max_polygons, P).contiguous(),
-    }
+    map_dict.update(
+        polygon_center=polygon_center,
+        polygon_type=polygon_type,
+        polygon_on_route=polygon_on_route,
+        polygon_tl_status=torch.full_like(li, TL_GREEN),
+        polygon_speed_limit=tmap.speed_limit[li],
+        valid_mask=lane_in[..., None].expand(B, max_polygons, P).contiguous(),
+    )
+    if not canonical:
+        map_dict["polygon_has_speed_limit"] = lane_in
 
     # ---------------------------------------------------------------- refs
     refs = reference_lines_from_chains(
@@ -142,14 +178,9 @@ def build_features_for_agents(
         "category": torch.zeros((B, 1), dtype=torch.long, device=dev),
         "valid_mask": torch.zeros((B, 1), dtype=torch.bool, device=dev),
     }
+    agent_dict.update(category=category, valid_mask=a_valid)
     return {
-        "agent": {
-            "order": order,
-            "cur_pos": a_cur_pos,
-            "cur_heading": a_cur_heading,
-            "category": category,
-            "valid_mask": a_valid,
-        },
+        "agent": agent_dict,
         "map": map_dict,
         "reference_line": ref_dict,
         "static_objects": statics,
@@ -223,16 +254,16 @@ def build_cbv_features(
     max_polygons: int = 64,
     num_refs: int = 4,
     radius: float = 120.0,
+    canonical: bool = False,
     with_sample_feats: bool = False,
 ):
-    """Canonical features (the JAX package's canonical=True; the per-CBV
-    legacy features are not ported yet) for all CBVs of all scenarios,
-    leading dims [S, C]. Returns (features, valid [S, C], shared) where `shared` holds
-    the frame-invariant blocks {"map_feat"/"map_type"/"map_speed" [L, ...],
-    "hist_feat" [S, A, H-1, 9]}.
+    """Features for all CBVs of all scenarios, leading dims [S, C].
+    Returns (features, valid [S, C]), and with `canonical` a third
+    element, `shared`: the frame-invariant blocks {"map_feat"/"map_type"/
+    "map_speed" [L, ...], "hist_feat" [S, A, H-1, 9]}.
 
-    `with_sample_feats` (train mode) also gathers the per-sample canonical
-    inputs "agent.hist_feat" [S, C, N, H-1, 9] and "map.canonical_feat"
+    `with_sample_feats` (train mode, canonical tokens; legacy features are
+    per sample already) also gathers the per-sample canonical inputs "agent.hist_feat" [S, C, N, H-1, 9] and "map.canonical_feat"
     [S, C, M, P, 10], so buffered samples stay self-contained for the fit
     forward; the model computes the same tokens from either form."""
     S, C = cbv_slots.shape
@@ -240,13 +271,15 @@ def build_cbv_features(
     feats = build_features_for_agents(
         tmap, state, scen, torch.clamp(cbv_slots, min=0).reshape(-1), spec,
         max_agents=max_agents, max_polygons=max_polygons,
-        num_refs=num_refs, radius=radius,
+        num_refs=num_refs, radius=radius, canonical=canonical,
     )
     feats = {
         g: {k: v.reshape((S, C) + v.shape[1:]) for k, v in d.items()}
         if isinstance(d, dict) else d.reshape((S, C) + d.shape[1:])
         for g, d in feats.items()
     }
+    if not canonical:
+        return feats, cbv_slots >= 0
     shared = {f"map_{k}": v for k, v in canonical_map_features(tmap).items()}
     shared["hist_feat"] = shared_history_features(state)
     if with_sample_feats:

@@ -1,12 +1,15 @@
 """Pluto planner in PyTorch (port of rift_tpu/models/pluto/model.py).
 
 dim 128, 21 history steps, 80 future steps, encoder and decoder depth 4
-by default, 12 modes, a reference-line x mode query decoder. This slice
-ports the canonical (frame-invariant token) paths: agent tokens from the
+by default, 12 modes, a reference-line x mode query decoder. The encoders
+branch on the features' keys, as the JAX package's do, over one parameter
+tree: the legacy (per-CBV, the JAX default) branches encode every
+neighbour's history and every lane polygon in the CBV's frame; the
+canonical (frame-invariant token) branches take agent tokens from the
 shared per-world-agent history features, map tokens from the shared
 per-lane features or the precomputed `map_tok` (the rollout), or both from
 the per-sample canonical features of a buffered batch (the fine-tune
-forward). The per-CBV legacy branches come later and raise here.
+forward).
 
 Submodule names are the flax ones, so `load_jax_params` maps a flax param
 path onto the module tree directly.
@@ -39,25 +42,12 @@ def _wrap(a):
     return (a + math.pi) % (2 * math.pi) - math.pi
 
 
-# what a caller that does not choose canonical tokens is told
-CANONICAL_ONLY = (
-    "rift_tpu_torch runs Pluto on canonical tokens only: the legacy per-CBV "
-    "token branch, the JAX package's default, is not ported yet (ROADMAP.md "
-    "section 1, the legacy per-CBV feature branch). Choose canonical tokens "
-    "with the override canonical_tokens=true (RunnerConfig(canonical=True))"
-)
-
-
-def _legacy(what):
-    return NotImplementedError(
-        f"{what}: only the canonical token path is ported so far"
-    )
-
-
 class AgentEncoder(nn.Module):
-    """Agent tokens: the HistoryEncoder over each world agent's own-frame
-    history (once per world agent), gathered per CBV slot; slot 0 is the
-    ego token from the current-state channels."""
+    """Agent tokens: the HistoryEncoder over history differences, either
+    each neighbour's in the CBV's frame (legacy) or each world agent's in
+    its own frame, once per world agent and gathered per CBV slot
+    (canonical); slot 0 is the ego token from the current-state
+    channels."""
 
     def __init__(self, dim=128, state_channel=6, hist_steps=21, dtype=None):
         super().__init__()
@@ -75,13 +65,14 @@ class AgentEncoder(nn.Module):
             tok = self.HistoryEncoder_0(hf.reshape(S * A_w, Tm1, C))
             tok = tok.reshape(S, A_w, self.dim)
             x = tok[shared["scen_idx"][:, None], data["agent"]["order"]]
-        elif "hist_feat" in data["agent"]:
-            # per-sample path (buffered fit samples)
-            feat = data["agent"]["hist_feat"]  # [B, A, T-1, 9]
+        else:
+            # per sample: canonical features of buffered fit samples, or
+            # legacy ones differenced here; [B, A, T-1, 9]
+            feat = data["agent"].get("hist_feat")
+            if feat is None:
+                feat = _history_differences(data["agent"], valid_mask, self.hist_steps)
             B, A, Tm1, C = feat.shape
             x = self.HistoryEncoder_0(feat.reshape(B * A, Tm1, C)).reshape(B, A, self.dim)
-        else:
-            raise _legacy("AgentEncoder")
         x = torch.where(valid_mask.any(-1)[..., None], x, 0.0)
         ego = self.StateAttentionEncoder_0(
             data["current_state"][:, : self.state_channel]
@@ -90,9 +81,54 @@ class AgentEncoder(nn.Module):
         return x + self.Embed_0(data["agent"]["category"])
 
 
+def _history_differences(agent, valid_mask, T):
+    """The legacy branch's [B, A, T-1, 9] HistoryEncoder input: position
+    and velocity differences, the heading difference's cos and sin, the
+    shape, and the difference mask; differences where either step is
+    invalid are 0."""
+    vec_mask = valid_mask[..., :-1] & valid_mask[..., 1:]
+
+    def to_vec(f):
+        f = f[:, :, :T]
+        d = f[:, :, 1:] - f[:, :, :-1]
+        return torch.where(vec_mask if d.dim() == vec_mask.dim() else vec_mask[..., None],
+                           d, 0.0)
+
+    dh = to_vec(agent["heading"])
+    return torch.cat(
+        [
+            to_vec(agent["position"]),
+            to_vec(agent["velocity"]),
+            torch.stack([torch.cos(dh), torch.sin(dh)], dim=-1),
+            agent["shape"][:, :, 1:T],
+            vec_mask[..., None].float(),
+        ],
+        dim=-1,
+    )
+
+
+def _polygon_points(m):
+    """The legacy branch's [B, M, P, 10] PointsEncoder input: centreline
+    points about the polygon centre, their vectors and orientation (cos,
+    sin), and the left and right edge points about the centreline's."""
+    pos, ori = m["point_position"], m["point_orientation"]
+    return torch.cat(
+        [
+            pos[:, :, 0] - m["polygon_center"][..., None, :2],
+            m["point_vector"][:, :, 0],
+            torch.stack([torch.cos(ori[:, :, 0]), torch.sin(ori[:, :, 0])], dim=-1),
+            pos[:, :, 1] - pos[:, :, 0],
+            pos[:, :, 2] - pos[:, :, 0],
+        ],
+        dim=-1,
+    )
+
+
 class MapEncoder(nn.Module):
-    """Polygon tokens: one frame-invariant token per map lane, gathered per
-    CBV polygon slot, plus on-route and light embeddings."""
+    """Polygon tokens: each CBV's lane polygons through the PointsEncoder
+    under their point masks (legacy), or one frame-invariant token per map
+    lane gathered per CBV polygon slot (canonical); plus type, on-route,
+    light and speed-limit embeddings."""
 
     def __init__(self, dim=128, dtype=None, points_norm="ln"):
         super().__init__()
@@ -109,7 +145,7 @@ class MapEncoder(nn.Module):
         if "map_feat" not in sh:
             m = data["map"]
             if "canonical_feat" not in m:
-                raise _legacy("MapEncoder")
+                return self._per_cbv(m)
             # per-sample path (buffered fit samples)
             feat = m["canonical_feat"]  # [B, M, P, 10]
             x = self.PointsEncoder_0(feat, torch.ones(feat.shape[:-1], dtype=torch.bool,
@@ -134,6 +170,20 @@ class MapEncoder(nn.Module):
         x = tok[m["lane_idx"]]
         x = x + self.on_route_emb(m["polygon_on_route"])
         return x + self.tl_emb(m["polygon_tl_status"])
+
+    def _per_cbv(self, m):
+        """Per-CBV polygons under their real masks (an all-masked polygon
+        gives 0), the embeddings added in the JAX package's order: type,
+        on-route, light, then the speed limit's or the unknown-speed
+        embedding. The latter is an f32 parameter, so with bf16 compute the
+        sum, as the JAX package's, comes out in f32."""
+        x = self.PointsEncoder_0(_polygon_points(m), m["valid_mask"])
+        x = x + self.type_emb(m["polygon_type"])
+        x = x + self.on_route_emb(m["polygon_on_route"])
+        x = x + self.tl_emb(m["polygon_tl_status"])
+        speed = self.speed_emb(m["polygon_speed_limit"][..., None])
+        return x + torch.where(m["polygon_has_speed_limit"][..., None], speed,
+                               self.unknown_speed_emb)
 
 
 class StaticObjectsEncoder(nn.Module):
@@ -321,9 +371,11 @@ class PlutoModel(nn.Module):
         if "map_tokens_only" in data:
             return self.MapEncoder_0(data)
         agent = data["agent"]
-        if "cur_pos" not in agent:
-            raise _legacy("PlutoModel")
-        agent_pos, agent_heading = agent["cur_pos"], agent["cur_heading"]
+        if "cur_pos" in agent:  # canonical tokens
+            agent_pos, agent_heading = agent["cur_pos"], agent["cur_heading"]
+        else:
+            agent_pos = agent["position"][:, :, self.history_steps - 1]
+            agent_heading = agent["heading"][:, :, self.history_steps - 1]
         agent_mask = agent["valid_mask"][:, :, : self.history_steps]
         polygon_center = data["map"]["polygon_center"]
         polygon_mask = data["map"]["valid_mask"]

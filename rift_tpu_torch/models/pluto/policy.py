@@ -2,8 +2,8 @@
 `select_trajectory`, `_neighbor_states`, `canonical_map_tokens` and both
 branches of `pluto_cbv_act`, with the BC pretrain's `execute_teacher`).
 
-One call plans every CBV of every scenario: canonical features, the
-PlutoModel forward, candidate selection, and the chosen local waypoints
+One call plans every CBV of every scenario: legacy (per-CBV) or canonical
+features, the PlutoModel forward, candidate selection, and the chosen local waypoints
 scattered into the [S, A] agent layout. In train mode it also scores every
 candidate with the GRPO evaluator (rl/evaluator.py, through the retrack
 and refline kernels on the card) and returns the training signals.
@@ -114,11 +114,14 @@ def pluto_cbv_act(
     max_cbvs: int = 3,
     train: bool = False,
     topk: int = TOPK,
+    canonical: bool = False,
     map_tok: torch.Tensor | None = None,
     execute_teacher: bool = False,
 ):
-    """Plan all CBVs of all scenarios (canonical tokens: the JAX package's
-    canonical=True, the only mode ported so far).
+    """Plan all CBVs of all scenarios, on legacy per-CBV tokens (the JAX
+    package's default) or, with `canonical`, on frame-invariant tokens
+    with the per-lane map tokens `map_tok` precomputed (or computed in the
+    call when None). `map_tok` is read only with `canonical`.
 
     The JAX function takes (model, params, ...); here the weights live in
     the torch model. Returns dict:
@@ -138,28 +141,31 @@ def pluto_cbv_act(
     _check_device(model, tmap)
     mode = torch.no_grad() if train else torch.inference_mode()
     with mode:
-        return _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok,
+        return _act(model, tmap, spec, state, max_cbvs, train, topk, canonical, map_tok,
                     execute_teacher)
 
 
-def _act(model, tmap, spec, state, max_cbvs, train, topk, map_tok, execute_teacher):
+def _act(model, tmap, spec, state, max_cbvs, train, topk, canonical, map_tok,
+         execute_teacher):
     S, A = state.alive.shape
     cbv_slots = cbv_slot_assignment(state.is_cbv, max_cbvs)
     C = cbv_slots.shape[1]
-    feats, slot_valid, shared = build_cbv_features(
-        tmap, state, cbv_slots, spec, with_sample_feats=train
+    dev = state.pos.device
+    feats, slot_valid, *rest = build_cbv_features(
+        tmap, state, cbv_slots, spec, canonical=canonical, with_sample_feats=train
     )
     model_in = {
         g: {k: v.reshape((S * C,) + v.shape[2:]) for k, v in d.items()}
         if isinstance(d, dict) else d.reshape((S * C,) + d.shape[2:])
         for g, d in feats.items()
     }
-    dev = state.pos.device
-    model_in["shared"] = {
-        **shared, "scen_idx": torch.arange(S, device=dev).repeat_interleave(C)
-    }
-    if map_tok is not None:
-        model_in["shared"]["map_tok"] = map_tok
+    if canonical:
+        (shared,) = rest
+        model_in["shared"] = {
+            **shared, "scen_idx": torch.arange(S, device=dev).repeat_interleave(C)
+        }
+        if map_tok is not None:
+            model_in["shared"]["map_tok"] = map_tok
     model_in["no_aux"] = True
     out = model(model_in)
 

@@ -78,15 +78,19 @@ def rpb_names():
 @functools.lru_cache(maxsize=None)
 def _band_index(n: int, window: int, device: torch.device):
     """The clamped neighborhood band (0 / -1e9) [n, n] and the relative
-    offset index [n, n] into a [H, 2w-1] RPB, on `device`, made once."""
+    offset index [n, n] into a [H, 2w-1] RPB, on `device`, made once. Made
+    outside inference mode whatever the caller's mode, so that a later
+    forward that autograd records (a fit that trains the encoder) may save
+    them."""
     w = min(window, n)
     i = np.arange(n)
     start = np.clip(i - (w - 1) // 2, 0, n - w)
     j = np.arange(n)
     near = (j[None, :] >= start[:, None]) & (j[None, :] < start[:, None] + w)
-    band = torch.from_numpy(np.where(near, 0.0, -1e9).astype(np.float32))
     rel = np.clip(i[None, :] - i[:, None] + (window - 1), 0, 2 * window - 2)
-    return band.to(device), torch.from_numpy(rel).to(device)
+    with torch.inference_mode(False):
+        band = torch.from_numpy(np.where(near, 0.0, -1e9).astype(np.float32))
+        return band.to(device), torch.from_numpy(rel).to(device)
 
 
 def band_rpb_bias(rpb: torch.Tensor, n: int, window: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Policy registries: the CBV and ego zoos (port of rift_tpu/policies.py,
-the Pluto family and the rule ego).
+the Pluto family and the rule, PDM-Lite and expert egos).
 
 `CBV_POLICY_LIST` and `EGO_POLICY_LIST` hold the ported keys only; asking
 for another raises a KeyError that names the ported ones (ROADMAP.md
@@ -7,10 +7,11 @@ lists what is still to come). A policy owns an `nn.Module` (its weights)
 and an explicit `torch.Generator`. The fine-tuned Pluto variants share
 one rollout driver (models/pluto/policy.py:pluto_cbv_act) and differ in
 the loss their `train_round` hands to rl.trainer.fit and in the
-parameters it trains. The port runs Pluto on canonical tokens only (the
-JAX package's `canonical_tokens=True`); the per-CBV feature branch, the
-JAX package's default, is still to come, so a Pluto config must choose
-canonical tokens (`canonical_tokens=true`) or it is refused.
+parameters it trains. Pluto runs on the legacy per-CBV tokens, the JAX
+package's default, unless its config sets `canonical_tokens` (the
+frame-invariant tokens, with the map tokens computed once per weight
+change). The two conventions share one parameter tree but not trained
+weights.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from .models.pluto import CANONICAL_ONLY, PlutoModel, canonical_map_tokens, pluto_cbv_act
+from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
 from .rl import (
     TrainConfig,
     fit,
@@ -98,8 +99,8 @@ class PlutoPolicy:
 
     def __init__(self, tmap, cfg=None, encoder_depth=4, decoder_depth=4, seed=0):
         cfg = cfg or {}
-        if not cfg.get("canonical_tokens", False):  # the JAX package's default
-            raise NotImplementedError(CANONICAL_ONLY)
+        # frame-invariant tokens; the legacy per-CBV ones by default
+        self.canonical = bool(cfg.get("canonical_tokens", False))
         self.tmap = tmap
         self.max_cbvs = cfg.get("max_cbvs", 3)
         seed = cfg.get("seed", seed)
@@ -117,13 +118,16 @@ class PlutoPolicy:
     def act(self, spec, state, train=False):
         return pluto_cbv_act(
             self.model, self.tmap, spec, state, max_cbvs=self.max_cbvs,
-            train=train and self.trainable, map_tok=self.map_tokens(),
-            execute_teacher=self.execute_teacher,
+            train=train and self.trainable, canonical=self.canonical,
+            map_tok=self.map_tokens(), execute_teacher=self.execute_teacher,
         )
 
     def map_tokens(self):
-        """Canonical per-lane map tokens, computed once per weight change:
-        every update of the model in place clears them."""
+        """Canonical per-lane map tokens, computed once per weight change
+        (every update of the model in place clears them); None on legacy
+        tokens."""
+        if not self.canonical:
+            return None
         if self._map_tok is None:
             self._map_tok = canonical_map_tokens(self.model, self.tmap)
         return self._map_tok
@@ -185,9 +189,9 @@ class _FineTunedPluto(PlutoPolicy):
         return self.buffer is not None and bool(self.buffer.full)
 
     def _forward(self, model, batch):
-        """The model on a buffered batch's per-sample features (the
-        auxiliary agent-prediction head skipped: no loss reads it) and the
-        reference lines' padding."""
+        """The model on a buffered batch's per-sample features, legacy or
+        canonical (the auxiliary agent-prediction head skipped: no loss
+        reads it), and the reference lines' padding."""
         out = model({**batch["features"], "no_aux": True})
         return out, ~batch["features"]["reference_line"]["valid_mask"].any(-1)
 
@@ -439,16 +443,36 @@ CBV_POLICY_LIST: dict[str, Callable] = _Registry("CBV", {
 # ---------------------------------------------------------------------------
 # Ego policies
 # ---------------------------------------------------------------------------
-class BehaviorEgo:
-    """'behavior': the leader-gap IDM route follower (ego/rule_ego.py), the
-    CARLA BehaviorAgent's counterpart. `rollout.rollout_chunk` runs it on
-    every scenario (scenario/env.py:env_step), so this class only names it."""
+class PDMLiteEgo:
+    """'pdm_lite': the default privileged rule expert (ego/pdm_ego.py: a
+    forecast sweep of every vehicle against the route, IDM to the first
+    hazard). `rollout.rollout_chunk` computes its waypoints every tick (its
+    kind in run.py's FUSED_EGO_KIND), so this class only names it."""
 
-    name = "behavior"
+    name = "pdm_lite"
     type = "unlearnable"
 
     def __init__(self, tmap, cfg=None):
         self.tmap = tmap
 
 
-EGO_POLICY_LIST: dict[str, Callable] = _Registry("ego", {"behavior": BehaviorEgo})
+class BehaviorEgo(PDMLiteEgo):
+    """'behavior': the leader-gap IDM route follower (ego/rule_ego.py), the
+    CARLA BehaviorAgent's counterpart, which env_step runs when given no
+    ego trajectory."""
+
+    name = "behavior"
+
+
+class ExpertEgo(PDMLiteEgo):
+    """'expert': the PDM core plus privileged lane changes (a slow leader
+    with a clear adjacent lane is overtaken instead of followed)."""
+
+    name = "expert"
+
+
+EGO_POLICY_LIST: dict[str, Callable] = _Registry("ego", {
+    "pdm_lite": PDMLiteEgo,
+    "behavior": BehaviorEgo,
+    "expert": ExpertEgo,
+})

@@ -2,15 +2,18 @@
 closed-loop tick goes on the card.
 
     python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick] [--steps 5]
+        [--legacy] [--ego rule|pdm|expert]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
 1..3) and the full-width bf16 PlutoModel, then traces `--steps` calls with
-torch.profiler: pluto_cbv_act in eval or train mode, or (`fit`) the train
-step of a fine-tune round on a batch of 256 of the train act's samples.
-`world` and `tick` reset the scenes and run 30 world-only ticks first (so
-that rule recognition has promoted CBVs), then trace the env step alone
-(the world tick, criteria, churn, recognition on every second call) or an
-eval tick (the act, then the env step).
+torch.profiler: pluto_cbv_act in eval or train mode (on canonical tokens
+with precomputed map tokens, or with `--legacy` on per-CBV tokens), or
+(`fit`) the train step of a fine-tune round on a batch of 256 of the train
+act's samples. `world` and `tick` reset the scenes and run 30 world-only
+ticks first (so that rule recognition has promoted CBVs), then trace the
+env step alone (the ego's waypoints of `--ego`, the world tick, criteria,
+churn, recognition on every second call) or an eval tick (the act, then
+the env step).
 Prints one JSON line: host wall time per call, device kernel time per call,
 the device's idle share, the number of kernel launches per call, the
 launches per call of each hand-written kernel (its wrapper's counter) and
@@ -43,6 +46,8 @@ def main() -> int:
                     default="eval")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--legacy", action="store_true", help="per-CBV (legacy) tokens")
+    ap.add_argument("--ego", choices=("rule", "pdm", "expert"), default="rule")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_act: no CUDA device", file=sys.stderr)
@@ -52,7 +57,7 @@ def main() -> int:
     from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
     from rift_tpu_torch.rl import TrainConfig, gather_batch, make_optimizer, rift_loss_fn
     from rift_tpu_torch.rl import ring_append, ring_init, train_step
-    from rift_tpu_torch.rollout import rollout_chunk
+    from rift_tpu_torch.rollout import ego_waypoints, rollout_chunk
     from rift_tpu_torch.scenario import TrafficEnv, env_step
     from torch.profiler import ProfilerActivity, profile
 
@@ -60,10 +65,11 @@ def main() -> int:
     state, spec = cs.make_scene(torch, tmap, 0)
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
-    tok = canonical_map_tokens(model, tmap)
+    canonical = not args.legacy
+    tok = canonical_map_tokens(model, tmap) if canonical else None
     train = args.mode in ("train", "fit")
     act = lambda: pluto_cbv_act(
-        model, tmap, spec, state, max_cbvs=cs.C, train=train, map_tok=tok
+        model, tmap, spec, state, max_cbvs=cs.C, train=train, canonical=canonical, map_tok=tok
     )
     if args.mode in ("world", "tick"):
         env = TrafficEnv(tmap, num_scenarios=cs.S, num_agents=cs.A, max_cbvs=cs.C)
@@ -73,10 +79,11 @@ def main() -> int:
         ticks = iter(range(30, 10**6))
 
         def act():
-            cbv = {}
+            cbv = {"ego_traj": ego_waypoints(args.ego, tmap, spec, state)}
             if args.mode == "tick":
-                res = pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, map_tok=tok)
-                cbv = {"cbv_traj": res["traj"], "cbv_traj_mask": res["mask"]}
+                res = pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C,
+                                    canonical=canonical, map_tok=tok)
+                cbv.update(cbv_traj=res["traj"], cbv_traj_mask=res["mask"])
             # the same state each call: ticks alternate recognition on and off
             return env_step(tmap, spec, state, crit, max_cbvs=cs.C, tick=next(ticks), **cbv)
     if args.mode == "fit":
@@ -125,6 +132,8 @@ def main() -> int:
     print(json.dumps({
         "profile_act": {
             "mode": args.mode,
+            "tokens": "canonical" if canonical else "legacy",
+            "ego": args.ego,
             "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,

@@ -5,21 +5,21 @@ the modes `eval` and `train_cbv` on the synthetic towns).
   train_cbv  fine-tune the CBV policy: buffer full -> fit -> the updated
              weights drive the next ticks
 
-    python -m rift_tpu_torch.run --mode train_cbv --ego_cfg behavior \\
-        --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid \\
-        canonical_tokens=true
+    python -m rift_tpu_torch.run --mode eval --ego_cfg pdm_lite \\
+        --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid
 
-The Pluto keys need the override `canonical_tokens=true`: the port runs
-canonical tokens only and refuses the JAX package's default, the legacy
-per-CBV tokens.
+The defaults are the JAX package's: the `pdm_lite` ego, Pluto on legacy
+per-CBV tokens (the override `canonical_tokens=true` picks the
+frame-invariant ones), and in eval 2 walkers and 2 static obstacles per
+scenario (`--num_walkers`, `--num_statics`; 0 in train_cbv).
 
-Ticks run in chunks of FUSED_CHUNK through rollout.rollout_chunk, with the
-rule ego. Everything runs on CUDA unless `--device cpu`. Not ported yet
+Ticks run in chunks of FUSED_CHUNK through rollout.rollout_chunk, with
+the ego's waypoints computed every tick inside the chunk (FUSED_EGO_KIND).
+Everything runs on CUDA unless `--device cpu`. Not ported yet
 (ROADMAP.md): the modes train_ego and collect_data, route files and the
-shared town, rendering, the per-tick host loop, walkers and static
-obstacles, attention recognition, ego weights, run tracking, and every
-ego but `behavior` (so the JAX package's default `--ego_cfg pdm_lite`
-raises, naming the ported egos).
+shared town, rendering, the per-tick host loop, attention recognition,
+ego weights, run tracking, and the egos `expert_disturb`, `plant` and the
+E2E stacks (asking for one raises, naming the ported egos).
 """
 
 from __future__ import annotations
@@ -43,6 +43,12 @@ from .utils.device import resolve_device
 from .utils.logger import Logger
 
 FUSED_CHUNK = 20  # ticks per rollout_chunk call
+# egos whose waypoints rollout_chunk computes in its tick loop
+FUSED_EGO_KIND = {
+    "pdm_lite": "pdm",
+    "expert": "expert",  # pdm + privileged lane changes
+    "behavior": "rule",
+}
 
 
 def build_map(args, device):
@@ -51,14 +57,15 @@ def build_map(args, device):
     return make_straight_town(length=600.0, num_lanes=2, device=device)
 
 
-def run_episode_fused(env, cbv, state, crit, spec, max_ticks, train=False,
+def run_episode_fused(env, ego, cbv, state, crit, spec, max_ticks, train=False,
                       chunk=FUSED_CHUNK, fit_hook=None):
-    """The tick loop in chunks of `chunk` ticks: policy act + env step
-    (rollout.rollout_chunk, which runs the rule ego itself, the `behavior`
-    ego, the one ported). `fit_hook` (train mode) is called
-    after every chunk that fills the policy's buffer: the fine-tune runs on
-    every buffer-full event, and later chunks roll out with the updated
-    weights. Returns (state, crit)."""
+    """The tick loop in chunks of `chunk` ticks: the ego's waypoints,
+    policy act and env step (rollout.rollout_chunk, with the ego's kind
+    from FUSED_EGO_KIND). `fit_hook` (train mode) is called after every
+    chunk that fills the policy's buffer: the fine-tune runs on every
+    buffer-full event, and later chunks roll out with the updated weights.
+    Returns (state, crit)."""
+    ego_kind = FUSED_EGO_KIND[ego.name]
     with_policy = hasattr(cbv, "model")  # the Pluto family
     train_extras = train and with_policy and cbv.trainable
     n_chunks = max((max_ticks + chunk - 1) // chunk, 1)
@@ -66,7 +73,9 @@ def run_episode_fused(env, cbv, state, crit, spec, max_ticks, train=False,
         state, crit, extras = rollout_chunk(
             cbv.model if with_policy else None, env.tmap, spec, state, crit,
             max_cbvs=env.max_cbvs, num_steps=chunk, train=train_extras,
-            with_policy=with_policy, map_tok=cbv.map_tokens() if with_policy else None,
+            with_policy=with_policy, ego=ego_kind,
+            canonical=with_policy and cbv.canonical,
+            map_tok=cbv.map_tokens() if with_policy else None,
             execute_teacher=with_policy and cbv.execute_teacher, tick=env.advance(chunk),
         )
         if train_extras and extras is not None:
@@ -119,6 +128,11 @@ def parse_args(argv=None):
     p.add_argument("--blocks", type=int, default=2)
     p.add_argument("--out_dir", default="log")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--num_walkers", type=int, default=-1,
+                   help="crossing pedestrians per scenario (-1: 2 in eval, 0 "
+                        "otherwise)")
+    p.add_argument("--num_statics", type=int, default=-1,
+                   help="static obstacles per scenario (-1: 2 in eval, 0 otherwise)")
     p.add_argument("--max_cbvs", type=int, default=-1,
                    help="max CBVs per scenario (-1: 2 in eval, 3 otherwise)")
     p.add_argument("--lights", default="green", choices=["green", "cycle"],
@@ -154,8 +168,11 @@ def main(argv=None):
     tmap = build_map(args, device)
     if args.lights == "green":  # light group -1: unsignalised, always green
         tmap = tmap.replace(light_group=torch.full_like(tmap.light_group, -1))
+    # eval runs with the full criteria surface: walkers and statics on
+    auto = lambda n: n if n >= 0 else (2 if args.mode == "eval" else 0)
     env = TrafficEnv(tmap, num_scenarios=args.num_scenario, num_agents=args.num_agents,
-                     max_cbvs=max_cbvs, seed=args.seed, device=device)
+                     max_cbvs=max_cbvs, seed=args.seed, num_walkers=auto(args.num_walkers),
+                     num_statics=auto(args.num_statics), device=device)
     ego = ego_cls(tmap, ego_cfg)
     cbv = cbv_cls(tmap, cbv_cfg)
     if args.pretrain and hasattr(cbv, "load_pretrain"):
@@ -185,7 +202,7 @@ def main(argv=None):
         pre_size = _buf_size(cbv)
         fit_losses: list = []
         fit_hook = (lambda: fit_losses.extend(cbv.train_round())) if trainable else None
-        state, crit = run_episode_fused(env, cbv, state, crit, spec, args.max_ticks,
+        state, crit = run_episode_fused(env, ego, cbv, state, crit, spec, args.max_ticks,
                                         train=train, fit_hook=fit_hook)
         if trainable and cbv.buffer_full():
             fit_losses.extend(cbv.train_round())

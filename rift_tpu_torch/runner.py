@@ -1,6 +1,8 @@
 """Top-level runner: the eval and the rollout/train alternation (port of
 rift_tpu/runner.py, on one device; the scenario-sharded mesh path comes
-with multi-GPU).
+with multi-GPU). Beside the JAX RunnerConfig's fields the port's names the
+ego kind and the walkers and static obstacles of the scenes; their
+defaults (the rule ego, none) are what the JAX Runner runs.
 
 A runner owns the map, the env, the Pluto CBV policy, the ring buffer and
 the statistics, and loops episodes. The fine-tune loop fills the buffer
@@ -15,9 +17,9 @@ from dataclasses import dataclass, field
 import torch
 
 from .map.tensor_map import TensorMap
-from .models.pluto import CANONICAL_ONLY, PlutoModel, canonical_map_tokens, pluto_cbv_act
+from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
 from .rl import TrainConfig, fit, rift_loss_fn, ring_reset
-from .rollout import flush_pending, rollout_chunk, store_chunk, tick_extras
+from .rollout import ego_waypoints, flush_pending, rollout_chunk, store_chunk, tick_extras
 from .scenario import TrafficEnv
 from .scenario.statistics import StatisticsManager
 from .utils.device import resolve_device
@@ -34,21 +36,23 @@ class RunnerConfig:
     seed: int = 0
     encoder_depth: int = 4
     decoder_depth: int = 4
-    # frame-invariant token mode, as the JAX RunnerConfig's; the port runs
-    # only this mode, so the default (the legacy per-CBV tokens) is refused
+    # frame-invariant token mode: encoders run once per world agent and
+    # map lane instead of once per CBV view (default: legacy per-CBV tokens)
     canonical: bool = False
+    ego: str = "rule"  # rollout.rollout_chunk's ego kind: rule, pdm or expert
+    num_walkers: int = 0  # crossing pedestrians per scenario
+    num_statics: int = 0  # static obstacles per scenario
 
 
 class Runner:
     def __init__(self, tmap: TensorMap, cfg: RunnerConfig | None = None, device=None):
         self.cfg = cfg or RunnerConfig()
-        if not self.cfg.canonical:
-            raise NotImplementedError(CANONICAL_ONLY)
         self.device = resolve_device(device)
         self.tmap = tmap
         self.env = TrafficEnv(
             tmap, num_scenarios=self.cfg.num_scenarios, num_agents=self.cfg.num_agents,
-            max_cbvs=self.cfg.max_cbvs, seed=self.cfg.seed, device=self.device,
+            max_cbvs=self.cfg.max_cbvs, seed=self.cfg.seed, num_walkers=self.cfg.num_walkers,
+            num_statics=self.cfg.num_statics, device=self.device,
         )
         self.model = self._seeded_model()
         self.buffer = None
@@ -74,8 +78,11 @@ class Runner:
         return self.env.reset()
 
     def _map_tokens(self):
-        """Canonical per-lane map tokens, computed once per weight change:
-        `fit` updates the model in place, so it clears them."""
+        """Canonical per-lane map tokens, computed once per weight change
+        (`fit` updates the model in place, so it clears them); None on
+        legacy tokens."""
+        if not self.cfg.canonical:
+            return None
         if self._map_tok is None:
             self._map_tok = canonical_map_tokens(self.model, self.tmap)
         return self._map_tok
@@ -89,13 +96,15 @@ class Runner:
         if collect is not None:
             pending = []
             for _ in range(self.cfg.max_episode_ticks):
+                ego_traj = ego_waypoints(self.cfg.ego, self.tmap, spec, state)
                 res = pluto_cbv_act(
                     self.model, self.tmap, spec, state, max_cbvs=C, train=train,
-                    map_tok=self._map_tokens(),
+                    canonical=self.cfg.canonical, map_tok=self._map_tokens(),
                 )
                 collect(state, res)
                 state, crit = self.env.step(
-                    state, crit, cbv_traj=res["traj"], cbv_traj_mask=res["mask"]
+                    state, crit, cbv_traj=res["traj"], cbv_traj_mask=res["mask"],
+                    ego_traj=ego_traj,
                 )
                 if train and bool(res["mask"].any()):
                     pending.append(tick_extras(self.tmap, res, state, crit))
@@ -109,7 +118,8 @@ class Runner:
             for _ in range(max(self.cfg.max_episode_ticks // chunk, 1)):
                 state, crit, extras = rollout_chunk(
                     self.model, self.tmap, spec, state, crit, max_cbvs=C,
-                    num_steps=chunk, train=train, map_tok=self._map_tokens(),
+                    num_steps=chunk, train=train, ego=self.cfg.ego,
+                    canonical=self.cfg.canonical, map_tok=self._map_tokens(),
                     tick=self.env.advance(chunk),
                 )
                 if extras is not None:

@@ -318,14 +318,16 @@ def wake_all_bvs(state):
 
 
 def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: CriteriaState,
-             cbv_traj=None, cbv_traj_mask=None, max_cbvs: int = 3, dt: float = 0.1,
-             *, tick: int):
+             cbv_traj=None, cbv_traj_mask=None, ego_traj=None, max_cbvs: int = 3,
+             dt: float = 0.1, *, tick: int):
     """One environment tick for every scenario -> (state, crit).
 
-    The ego is the rule ego; CBVs follow `cbv_traj` [S, A, T, 2] local
-    waypoints where `cbv_traj_mask` [S, A] holds; everyone else runs the
-    IDM autopilot. (The JAX package's learned egos and raw-control agents
-    come with the ego zoo.) `tick` is the state's tick before the step, the
+    The ego follows `ego_traj` [S, T, 2] local waypoints when given (the
+    PDM-Lite and expert egos), else the rule ego's; CBVs follow `cbv_traj`
+    [S, A, T, 2] local waypoints where `cbv_traj_mask` [S, A] holds;
+    everyone else runs the IDM autopilot. (The JAX package's raw-control
+    agents come with the rest of the ego zoo.) `tick` is the state's tick
+    before the step, the
     same in every scenario (ticks advance in lockstep); the caller keeps it
     on the host, so the recognition cadence costs no device read."""
     S, A = state.alive.shape
@@ -336,7 +338,8 @@ def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: Criteri
     wake = state.bv_pool & (d_ego < BV_ACTIVATE_RADIUS)
     state = state.replace(alive=state.alive | wake, bv_pool=state.bv_pool & ~wake)
 
-    ego_traj = rule_ego_waypoints(spec, state, dt, tmap=tmap)
+    if ego_traj is None:
+        ego_traj = rule_ego_waypoints(spec, state, dt, tmap=tmap)
     T = ego_traj.shape[-2]
     traj = torch.zeros((S, A, T, 2), device=dev)
     traj[:, 0] = ego_traj
@@ -449,12 +452,12 @@ class TrafficEnv:
         self.tick += ticks
         return start
 
-    def step(self, state, crit, cbv_traj=None, cbv_traj_mask=None):
+    def step(self, state, crit, cbv_traj=None, cbv_traj_mask=None, ego_traj=None):
         """One tick of the scenes of the last reset -> (state, crit)."""
         return env_step(
             self.tmap, self.spec, state, crit, cbv_traj=cbv_traj,
-            cbv_traj_mask=cbv_traj_mask, max_cbvs=self.max_cbvs, dt=self.dt,
-            tick=self.advance(1),
+            cbv_traj_mask=cbv_traj_mask, ego_traj=ego_traj, max_cbvs=self.max_cbvs,
+            dt=self.dt, tick=self.advance(1),
         )
 
     def all_done(self, crit) -> bool:

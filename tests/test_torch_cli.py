@@ -7,6 +7,8 @@ depth-1 model, a buffer of 8): one `train_cbv` episode on the grid town
 of one block that fits once, checkpoints and saves a pretrain; an `eval`
 episode on the straight town from that pretrain; and `eval --resume`,
 which reads the statistics file back and runs only the missing episode.
+Then an `eval` with the JAX CLI's defaults (no ego, no override): the
+pdm_lite ego, legacy tokens, 2 walkers and 2 statics.
 """
 
 import glob
@@ -15,15 +17,18 @@ import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from rift_tpu.utils import config as jax_config
 from rift_tpu_torch import run
+from rift_tpu_torch.rollout import rollout_chunk
+from rift_tpu_torch.sim.state import CLASS_STATIC, CLASS_WALKER
 from rift_tpu_torch.utils import config
 from torch_parity import one_torch_thread
 
 CONFIGS = ("standard", "pluto", "rift_pluto", "grpo_pluto", "reinforce_pluto", "rs_pluto",
-           "sft_pluto", "rtr_pluto", "ppo_pluto")
+           "sft_pluto", "rtr_pluto", "ppo_pluto", "pdm_lite")
 
 
 def test_configs_and_overrides_match_jax():
@@ -75,7 +80,38 @@ def test_run_train_cbv_then_eval_resume(tmp_path, capsys):
         records = json.load(f)["records"]
     assert g.total_routes == 4 and len(records) == 4 and records[:2] == first
     assert "episode 0" not in capsys.readouterr().out.split("loaded pretrain")[-1]
-    with pytest.raises(KeyError, match="behavior"):
-        run.main(["--mode", "eval", "--device", "cpu", "--out_dir", out])  # pdm_lite
+    with pytest.raises(KeyError, match="pdm_lite"):
+        run.main(["--mode", "eval", "--ego_cfg", "expert_disturb", "--device", "cpu",
+                  "--out_dir", out])
     with pytest.raises(SystemExit):
         run.main(["--mode", "collect_data", "--device", "cpu"])
+
+
+def test_run_eval_with_the_defaults(tmp_path, monkeypatch):
+    """`run.main` in eval with no ego and no override: the pdm_lite ego
+    computed in every chunk's tick loop, Pluto on legacy tokens (no map
+    tokens), and 2 walkers and 2 static obstacles per scenario. Without a
+    card and without --device cpu it raises."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run.main(["--mode", "eval", "--cbv_cfg", "rift_pluto"])
+    calls = []
+
+    def recorded(*args, **kw):
+        state = args[3]
+        calls.append(dict(kw, walkers=int((state.agent_class == CLASS_WALKER).sum()),
+                          statics=int((state.agent_class == CLASS_STATIC).sum())))
+        return rollout_chunk(*args, **kw)
+
+    monkeypatch.setattr(run, "rollout_chunk", recorded)
+    out = str(tmp_path / "log")
+    g = run.main(["--mode", "eval", "--cbv_cfg", "rift_pluto", "--device", "cpu",
+                  "--num_scenario", "2", "--num_agents", "12", "--num_episodes", "1",
+                  "--max_ticks", "20", "--town", "straight", "--out_dir", out,
+                  "encoder_depth=1", "decoder_depth=1"])
+    assert g.total_routes == 2 and len(calls) == 1
+    kw = calls[0]
+    assert (kw["ego"], kw["canonical"], kw["map_tok"], kw["max_cbvs"]) == ("pdm", False, None, 2)
+    assert (kw["walkers"], kw["statics"]) == (2 * 2, 2 * 2)
+    assert os.path.exists(os.path.join(out, "eval", "pdm_lite-rift_pluto-seed0",
+                                       "simulation_results.json"))

@@ -24,7 +24,9 @@ HistoryEncoder stage 1e-4 at the main path's N = 1536 rows, at its
 chunk layout's edges and at shapes beyond the model's levels (two f32
 LocalBlocks, products up to 384 deep summed in another order), and the
 whole-encoder kernel 1e-4 there (six blocks, the convolutions and the
-FPN). The launch counters show which kernels a path takes. The
+FPN), also at an act call's rows on legacy tokens (N = 6144; the
+PointNet there at its 12288 map polygons, masked whole). The launch
+counters show which kernels a path takes. The
 gradients through the kernels' autograd Functions equal the plain
 versions' gradients (both backwards recompute through the plain version;
 the forward outputs feed nothing else).
@@ -147,6 +149,26 @@ def test_points_kernel_tile_edges(cuda_device, N, P, kind):
     got = points_encoder(x, mask, w, 128)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, points_forward_ref(x, mask, w), atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_points_kernel_legacy_map_shape(cuda_device):
+    """The map-polygon launch of an act call on legacy (per-CBV) tokens at
+    the bench configuration: N = 64 scenarios x 3 CBVs x 64 polygons of
+    20 points and 10 channels, polygons in or out whole as the features'
+    masks (a slot past the lanes in range), a quarter of them out: those
+    give exactly 0 from both, the rest within the file's PointNet bound."""
+    r = np.random.default_rng(11)
+    N = 64 * 3 * 64
+    x = torch.from_numpy(r.normal(0, 2.0, (N, 20, 10)).astype(np.float32)).to(cuda_device)
+    out = torch.from_numpy(r.random(N) < 0.25).to(cuda_device)
+    mask = (~out)[:, None].expand(N, 20).contiguous()
+    w = [torch.from_numpy(a).to(cuda_device) for a in points_weights(4, 10, 128)]
+    got = points_encoder(x, mask, w, 128)
+    torch.cuda.synchronize()
+    ref = points_forward_ref(x, mask, w)
+    assert out.any() and not got[out].any() and not ref[out].any()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-5)
 
 
 def _replay(ref_pos, trace, dt=0.1):
@@ -569,12 +591,30 @@ def test_history_encoder_kernel_chunk_edges(cuda_device, N):
 
 
 @pytest.mark.cuda
+def test_history_encoder_kernel_legacy_act_rows(cuda_device):
+    """The whole-encoder kernel at an act call's history rows on legacy
+    (per-CBV) tokens at the bench configuration, N = 64 x 3 CBVs x 32
+    agents = 6144, a quarter of them all zeros (invalid neighbour slots
+    give zero differences), f32, atol 1e-4."""
+    W = _encoder_params(cuda_device, seed=4)
+    r = np.random.default_rng(5)
+    x = r.normal(size=(6144, 20, 9)).astype(np.float32)
+    x[r.random(6144) < 0.25] = 0.0
+    x = torch.from_numpy(x).to(cuda_device)
+    with torch.no_grad():
+        got = history_encoder(x, W)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, history_encoder_ref(x, W), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
 def test_launch_counts(cuda_device):
     """Where the launches go: the HistoryEncoder takes the whole-encoder
     kernel once when no gradient flows through it and the stage kernel at
     each of its three levels when one does; an eval act at depth 1 launches
     5 attentions (the ego state, one encoder layer, three decoder
-    attentions), 1 whole-encoder kernel and 1 PointNet, and no stage."""
+    attentions), 1 whole-encoder kernel and 1 PointNet, and no stage; on
+    legacy tokens a second PointNet for the CBVs' map polygons."""
     from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
     from rift_tpu_torch.models.pluto.layers import HistoryEncoder
     from rift_tpu_torch.map import make_grid_town
@@ -604,7 +644,12 @@ def test_launch_counts(cuda_device):
     tok = canonical_map_tokens(model, tmap)
     mods = (attention, history, points)
     start = [m.launches for m in mods] + [history.encoder_launches]
-    pluto_cbv_act(model, tmap, spec, state.replace(is_cbv=is_cbv), max_cbvs=2, map_tok=tok)
+    pluto_cbv_act(model, tmap, spec, state.replace(is_cbv=is_cbv), max_cbvs=2, canonical=True,
+                  map_tok=tok)
     torch.cuda.synchronize()
     done = [m.launches for m in mods] + [history.encoder_launches]
     assert [b - a for a, b in zip(start, done)] == [5, 0, 1, 1]
+    pluto_cbv_act(model, tmap, spec, state.replace(is_cbv=is_cbv), max_cbvs=2)
+    torch.cuda.synchronize()
+    end = [m.launches for m in mods] + [history.encoder_launches]
+    assert [b - a for a, b in zip(done, end)] == [5, 0, 2, 1]

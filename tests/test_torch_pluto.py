@@ -224,7 +224,7 @@ def test_history_encoder_matches(world):
 def test_features_match(world):
     slots = cbv_slot_assignment(world["state"].is_cbv, C)
     feats, valid, shared = build_cbv_features(
-        world["tmap"], world["state"], slots, world["spec"]
+        world["tmap"], world["state"], slots, world["spec"], canonical=True
     )
     jf = world["feats"]
     for g in jf:
@@ -278,7 +278,7 @@ def test_pluto_cbv_act_matches(world):
     )
     got = pluto_cbv_act(
         world["model"], world["tmap"], world["spec"], world["state"],
-        max_cbvs=C, map_tok=tok,
+        max_cbvs=C, canonical=True, map_tok=tok,
     )
     mask = np.asarray(ref["mask"])
     assert mask.any()

@@ -8,8 +8,10 @@ compiles, and the gradients are taken w.r.t. those outputs; values and
 gradients within 1e-5 (f32 sums over a few hundred candidates).
 `_teacher_label` exactly. The registries hold the ported keys and name
 them when asked for another; the trainable sets and optimizer settings
-are the JAX policies'. (The pretrain npz round trip between the packages
-is in test_torch_pluto.py, on its seeded model.)
+are the JAX policies', and the defaults (the token convention, the
+Runner's fields, the CLI's flags) the JAX package's. (The pretrain npz
+round trip between the packages is in test_torch_pluto.py, on its seeded
+model.)
 """
 
 import dataclasses
@@ -23,7 +25,8 @@ import torch
 
 from rift_tpu import policies as jpolicies
 from rift_tpu.runner import RunnerConfig as JaxRunnerConfig
-from rift_tpu_torch import policies
+from rift_tpu import run as jax_run
+from rift_tpu_torch import policies, run
 from rift_tpu_torch.runner import Runner, RunnerConfig
 from rift_tpu_torch.utils.config import apply_overrides, load_config
 from torch_parity import one_torch_thread
@@ -110,11 +113,14 @@ def test_teacher_label_and_registry():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     assert set(policies.CBV_POLICY_LIST) == {"standard", "pluto", *FINE_TUNED}
-    assert set(policies.EGO_POLICY_LIST) == {"behavior"}
+    assert set(policies.EGO_POLICY_LIST) == {"pdm_lite", "behavior", "expert"}
     with pytest.raises(KeyError, match="ROADMAP.md"):
         policies.CBV_POLICY_LIST["ppo"]
-    with pytest.raises(KeyError, match="behavior"):
-        policies.EGO_POLICY_LIST["pdm_lite"]
+    with pytest.raises(KeyError, match="pdm_lite"):
+        policies.EGO_POLICY_LIST["expert_disturb"]
+    for name, cls in policies.EGO_POLICY_LIST.items():
+        assert cls.name == jpolicies.EGO_POLICY_LIST[name].name == name
+        assert run.FUSED_EGO_KIND[name] == jax_run.FUSED_EGO_KIND[name]
     for key in ("pluto", "rift_pluto", "ppo_pluto", "bc_pluto"):
         trainable = policies.CBV_POLICY_LIST[key](CPU_MAP, CANONICAL_SMALL)
         jtrain = jpolicies.CBV_POLICY_LIST[key](None, {})
@@ -125,23 +131,36 @@ def test_teacher_label_and_registry():
         assert trainable.execute_teacher == jtrain.execute_teacher
 
 
-def test_pluto_refuses_the_legacy_token_default():
+def test_defaults_equal_the_jax_defaults():
     """The JAX package runs Pluto on legacy per-CBV tokens unless a config
-    sets `canonical_tokens` (policies.py) or the Runner's `canonical`; the
-    port has only canonical tokens, so it refuses both defaults, naming
-    the override, instead of running another convention than the JAX CLI
-    would. With the override a policy builds."""
-    assert jpolicies.CBV_POLICY_LIST["rift_pluto"](None, {}).canonical is False
+    sets `canonical_tokens` (no shipped config does) or the Runner's
+    `canonical`; so does the port, which computes map tokens only for
+    canonical tokens. The fields the two RunnerConfigs share default
+    alike, and the port's own (ego, walkers, statics) default to what the
+    JAX Runner runs. The CLI's defaults are the JAX CLI's: the pdm_lite
+    ego and, in eval, 2 walkers and 2 statics (-1: by mode)."""
+    jpol = jpolicies.CBV_POLICY_LIST["rift_pluto"](None, {})
     assert "canonical_tokens" not in load_config("rift_pluto")
-    for cfg in (load_config("rift_pluto"), {"canonical_tokens": False}):
-        with pytest.raises(NotImplementedError, match="canonical_tokens=true"):
-            policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**cfg, **SMALL})
+    pol = policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**load_config("rift_pluto"), **SMALL})
+    assert pol.canonical is jpol.canonical is False and pol.map_tokens() is None
     cfg = apply_overrides(load_config("rift_pluto"), ["canonical_tokens=true"])
     pol = policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**cfg, **SMALL})
-    assert pol.trainable and cfg["canonical_tokens"] is True
+    assert pol.trainable and pol.canonical is True
 
     assert RunnerConfig().canonical is JaxRunnerConfig().canonical is False
-    assert {f.name for f in dataclasses.fields(RunnerConfig)} <= {
-        f.name for f in dataclasses.fields(JaxRunnerConfig)}
-    with pytest.raises(NotImplementedError, match="canonical_tokens=true"):
-        Runner(None, RunnerConfig(), device="cpu")
+    jfields = {f.name: f for f in dataclasses.fields(JaxRunnerConfig)}
+    own = set()
+    for f in dataclasses.fields(RunnerConfig):
+        if f.name not in jfields:
+            own.add(f.name)
+        elif f.name != "train":
+            assert f.default == jfields[f.name].default, f.name
+    assert own == {"ego", "num_walkers", "num_statics"}
+    cfg = RunnerConfig()
+    assert (cfg.ego, cfg.num_walkers, cfg.num_statics) == ("rule", 0, 0)
+    runner = Runner(CPU_MAP, RunnerConfig(encoder_depth=1, decoder_depth=1), device="cpu")
+    assert runner._map_tokens() is None and runner.env.num_walkers == 0
+
+    args = run.parse_args([])
+    assert (args.mode, args.ego_cfg, args.cbv_cfg) == ("eval", "pdm_lite", "rift_pluto")
+    assert (args.num_walkers, args.num_statics, args.overrides) == (-1, -1, [])

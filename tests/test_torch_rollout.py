@@ -55,7 +55,7 @@ def test_eval_rollout_matches(tmp_path):
     )
     got = rollout_chunk(
         model, scene["tmap"], spec_from_jax(jspec), state_from_jax(jstate),
-        crit_from_jax(jcrit), max_cbvs=C, num_steps=3,
+        crit_from_jax(jcrit), max_cbvs=C, num_steps=3, canonical=True,
         map_tok=canonical_map_tokens(model, scene["tmap"]), tick=0,
     )
     assert int(got[0].is_cbv.sum()) > 0 and int(got[1].cbv_count.sum()) > 0

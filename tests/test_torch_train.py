@@ -131,7 +131,7 @@ def world(tmp_path_factory):
     ).compile({"xla_disable_hlo_passes": "fusion"})
     ref = act(params, jmap, jspec, jstate, map_tok=jtok)
     got = pluto_cbv_act(
-        model, tmap, spec, state, max_cbvs=C, train=True,
+        model, tmap, spec, state, max_cbvs=C, train=True, canonical=True,
         map_tok=canonical_map_tokens(model, tmap),
     )
     return dict(jmodel=jmodel, params=params, flat=flat, model=model, ref=ref, got=got,
@@ -166,7 +166,7 @@ def test_execute_teacher_drives_the_teacher_path(world):
     ref, got = world["ref"], world["got"]
     res = pluto_cbv_act(
         world["model"], world["tmap"], world["spec"], world["state"], max_cbvs=C,
-        train=True, map_tok=canonical_map_tokens(world["model"], world["tmap"]),
+        train=True, canonical=True, map_tok=canonical_map_tokens(world["model"], world["tmap"]),
         execute_teacher=True,
     )
     teacher = np.asarray(ref["teacher_traj"])  # [S, C, 80, 2]

@@ -45,6 +45,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -205,8 +206,10 @@ def step_times(torch) -> dict:
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
     tok = canonical_map_tokens(model, tmap)
+    # canonical tokens in every tree (a tree without the flag has no other)
+    canon = {"canonical": True} if "canonical" in inspect.signature(pluto_cbv_act).parameters else {}
     act = lambda train: pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C, train=train,
-                                      map_tok=tok)
+                                      map_tok=tok, **canon)
     act_ms = host_ms(torch, lambda: act(False), 10)
     train_ms = host_ms(torch, lambda: act(True), 5)
     samples, valid = cs.train_samples(torch, act(True))
