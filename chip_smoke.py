@@ -5,7 +5,9 @@ planner's eval step, its train step (the GRPO evaluator) and a fine-tune
 round at full width, then the closed loop (Runner.eval and
 Runner.train_cbv at the bench configuration), the fine-tuning zoo and the
 CLI, on canonical tokens; then the same paths with the JAX CLI's
-defaults: legacy (per-CBV) tokens, the PDM-Lite ego, walkers and statics.
+defaults: legacy (per-CBV) tokens, the PDM-Lite ego, walkers and statics;
+then route files on route towns with the PlanT_medium ego and attention
+recognition.
 
     python3 chip_smoke.py
 
@@ -14,7 +16,9 @@ Phases (any failure raises and exits non-zero):
      started together) and print the card's name and power limit;
   2. hold each kernel against its plain version at the main path's shapes:
      attention in f32 (atol 1e-5) and bf16 (atol 2e-2), also at the tile
-     edges of ATTN_EDGES, the PointNet in
+     edges of ATTN_EDGES, and at PlanT's shapes (19 tokens at S: the
+     ego's D = 512, H = 8, head dim 64, and the recognizer's D = 128, H =
+     4) and head dim 64's edges (PLANT_ATTN_EDGES), the PointNet in
      f32 at the act's and a fit step's shapes and at a legacy act's map
      polygons (N = S*C*64 = 12288 rows of [20, 10], a quarter of them
      masked whole, which must give exactly 0; atol 1e-4), the retrack
@@ -98,7 +102,24 @@ Phases (any failure raises and exits non-zero):
      chunk through the kernels and the plain versions at phase 9's bounds;
  13. `run.main` with no ego and no override (pdm_lite, legacy tokens,
      in eval 2 walkers and 2 statics): eval for 40 ticks (exact launch
-     counts), then train_cbv for 160 ticks.
+     counts), then train_cbv for 160 ticks;
+ 14. a route file written here (write_route_file: straight routes, Ls
+     with a corner and crossing pairs, with weather): the Eval loader's
+     first batch as a route town on the card and the shared town of all
+     routes; the attention kernel against its plain version at PlanT's
+     shapes at the batch's S and the CLI's 4 (f32 1e-5, bf16 2e-2);
+     TrafficEnv.reset with each scenario on its route; two K=40
+     chunks of rollout_chunk with the PlanT_medium ego (f32), the Pluto
+     CBVs on legacy tokens and attention recognition, exact launch counts
+     (per tick 8 attention launches for the ego and the act's 17, 4 per
+     recognition tick); env-steps/s at the batch's S; one f32 chunk
+     through the kernels and the plain versions at phase 9's bounds,
+     the egos apart held to the CBVs' bound;
+ 15. `run.main` on the route file: eval with the plant ego and
+     `--cbv_recog attention` at the default num_scenario over two
+     batches, the last padded (exact launch counts; records with route
+     ids and weather), `--shared_town` once, and train_cbv on route towns
+     until a fit round (the re-tracking and reference-line kernels).
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -138,6 +159,12 @@ LEGACY_POLYGONS_OUT = 0.25  # share of polygon slots masked whole in the check
 # f32 closed loop, kernels vs plain versions: the most agents that may end
 # apart, as a share of the agents that were CBVs and of all agents
 LOOP_CBVS_APART, LOOP_AGENTS_APART = 0.05, 0.01
+# PlanT: the ego (PlanT_medium, head dim 64) and the attention recognizer,
+# over 16 vehicle tokens, 2 route tokens and the CLS token
+PLANT_EGO = {"dim": 512, "num_layers": 8, "num_heads": 8}
+PLANT_RECOG = {"dim": 128, "num_layers": 4, "num_heads": 4}
+PLANT_TOKENS = 16 + 2 + 1
+ROUTE_GROUPS = 5  # copies of the route file's four routes, 3 km apart
 
 
 def attention_shapes(B=S * C):
@@ -169,6 +196,26 @@ ATTN_EDGES = [
     (16, 300, 33, DIM, HEADS, "kv"), (2101, 3, 2, DIM, HEADS, "sep"),
     (5, 4, 4, 96, 3, "self"),
 ]
+
+
+# head dim 64 beside PlanT's own shapes (B, Tq, Tk, D, H, kind): Tk = 1
+# (four short sequences to a warp), 17 (a key tail) and 128 (f32 K and V
+# above 48 KB of shared memory), and Tq = 130, a second pass of 8 warps
+PLANT_ATTN_EDGES = [
+    (64, 1, 1, 128, 2, "sep"), (64, 17, 17, 512, 8, "self"),
+    (64, 48, 128, 256, 4, "kv"), (16, 130, 128, 128, 2, "kv"),
+]
+
+
+def plant_attention_shapes(B=S):
+    """PlanT's attention launches at batch B (S scenarios): the ego's and
+    the recognizer's self-attention over the 19 tokens."""
+    return {
+        "plant_ego": (B, PLANT_TOKENS, PLANT_TOKENS, PLANT_EGO["dim"], PLANT_EGO["num_heads"],
+                      "self"),
+        "plant_recog": (B, PLANT_TOKENS, PLANT_TOKENS, PLANT_RECOG["dim"],
+                        PLANT_RECOG["num_heads"], "self"),
+    }
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -229,14 +276,11 @@ def attention_inputs(torch, gen, shape, dtype):
     return q, k, v, bias, kpad
 
 
-def check_attention(torch, attention):
-    """Kernel vs plain version at each main-path shape family and at the
-    tile edges (ATTN_EDGES), f32 and bf16; then times of one act call's 17
-    launches (bf16, as the model runs them)."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = attention_shapes()
+def attention_errors(torch, attention, gen, shapes):
+    """The kernel against its plain version at each shape, in f32 (atol
+    1e-5) and bf16 (2e-2): the largest error of each type."""
     err = {"float32": 0.0, "bfloat16": 0.0}
-    for shape in sorted(set(shapes)) + ATTN_EDGES:
+    for shape in shapes:
         for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             args = attention_inputs(torch, gen, shape, dtype)
             got = attention.fused_attention(*args, shape[4])
@@ -247,8 +291,40 @@ def check_attention(torch, attention):
             err[name] = max(err[name], e)
             if not e <= atol:
                 raise AssertionError(f"attention {shape} {dtype}: max err {e} > {atol}")
+    return err
 
+
+def check_attention(torch, attention):
+    """Kernel vs plain version at each main-path shape family and at the
+    tile edges (ATTN_EDGES), f32 and bf16; then times of one act call's 17
+    launches (bf16, as the model runs them)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = attention_shapes()
+    err = attention_errors(torch, attention, gen, sorted(set(shapes)) + ATTN_EDGES)
     calls = [attention_inputs(torch, gen, s, torch.bfloat16) + (s[4],) for s in shapes]
+    by_launch = {}
+    for c, shape in zip(calls, shapes):
+        key = "x".join(map(str, shape[:3]))
+        if key not in by_launch:
+            by_launch[key] = graph_ms(torch, lambda: attention.fused_attention(*c))
+    return {
+        **time_attention(torch, attention, calls, "bfloat16"),
+        "max_abs_err": err["float32"],
+        "max_abs_err_bf16": err["bfloat16"],
+        "timed_work": f"the {len(calls)} launches of one act call at S={S}, bf16, launched "
+                      "from Python (ms) and replayed from a CUDA graph (device_ms: device "
+                      "time, without the host's cost of the launches)",
+        "device_ms_by_launch": by_launch,
+    }
+
+
+def time_attention(torch, attention, calls, peak):
+    """A set of attention launches ((q, k, v, bias, kpad, heads) each):
+    kernel, plain version and one SDPA call each (float mask: bias plus
+    key pad), launched from Python (ms) and replayed from a CUDA graph
+    (device_*), and their bound: each input read once and each output
+    written once at the card's memory rate, or 4 Tq Tk D operations a
+    launch at `peak`."""
     sdpa_in = []
     for q, k, v, bias, kpad, H in calls:
         B, Tq, D = q.shape
@@ -264,31 +340,47 @@ def check_attention(torch, attention):
         nbytes += (B * Tq * D * 2 + 2 * B * Tk * D) * q.element_size()
         nbytes += (bias.numel() + kpad.numel()) * 4
         flops += 4 * B * Tq * Tk * D
-    bound, by = bound_ms(nbytes, flops, "bfloat16")
+    bound, by = bound_ms(nbytes, flops, peak)
     kernel = lambda: [attention.fused_attention(*c) for c in calls]
     plain = lambda: [attention.fused_attention_ref(*c) for c in calls]
     library = lambda: [sdpa(q, k, v, attn_mask=m) for q, k, v, m in sdpa_in]
-    by_launch = {}
-    for c, shape in zip(calls, shapes):
-        key = "x".join(map(str, shape[:3]))
-        if key not in by_launch:
-            by_launch[key] = graph_ms(torch, lambda: attention.fused_attention(*c))
     return {
         "ms": cuda_ms(torch, kernel),
         "plain_ms": cuda_ms(torch, plain),
         "library_ms": cuda_ms(torch, library),
         "bound_ms": bound,
         "bound_by": by,
-        "max_abs_err": err["float32"],
-        "max_abs_err_bf16": err["bfloat16"],
-        "timed_work": f"the {len(calls)} launches of one act call at S={S}, bf16, launched "
-                      "from Python (ms) and replayed from a CUDA graph (device_ms: device "
-                      "time, without the host's cost of the launches)",
         "device_ms": graph_ms(torch, kernel),
         "device_plain_ms": graph_ms(torch, plain),
         "device_library_ms": graph_ms(torch, library),
-        "device_ms_by_launch": by_launch,
     }
+
+
+def check_plant_attention(torch, attention):
+    """Kernel vs plain version at PlanT's shapes (the ego's D = 512, H = 8,
+    head dim 64, and the recognizer's D = 128, H = 4, 19 tokens, batch S)
+    and at head dim 64's edges (PLANT_ATTN_EDGES), f32 (1e-5) and bf16
+    (2e-2); each timed in f32, as PlanT runs, with its bound counted at
+    3xTF32 (the kernel's f32 arithmetic): one ego tick's 8 launches, one
+    recognition tick's 4, one launch of each edge."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = {**plant_attention_shapes(),
+              **{"x".join(map(str, e[:5])): e for e in PLANT_ATTN_EDGES}}
+    out = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
+    for name, shape in shapes.items():
+        err = attention_errors(torch, attention, gen, [shape])
+        out["max_abs_err"] = max(out["max_abs_err"], err["float32"])
+        out["max_abs_err_bf16"] = max(out["max_abs_err_bf16"], err["bfloat16"])
+        n = {"plant_ego": PLANT_EGO, "plant_recog": PLANT_RECOG}.get(name, {"num_layers": 1})
+        calls = [attention_inputs(torch, gen, shape, torch.float32) + (shape[4],)
+                 for _ in range(n["num_layers"])]
+        B, Tq, Tk, D, H, _ = shape
+        out[name] = {
+            **time_attention(torch, attention, calls, "tf32x3"),
+            "max_abs_err": err["float32"], "max_abs_err_bf16": err["bfloat16"],
+            "timed_work": f"{len(calls)} launch(es), B={B}, Tq={Tq}, Tk={Tk}, D={D}, H={H}, f32",
+        }
+    return out
 
 
 def points_inputs(torch, gen, N, P, Cin, prefix_mask):
@@ -986,42 +1078,68 @@ def closed_loop(torch, tmap, counters, plain_versions, kernel_versions):
                          dtype=torch.float32).eval()
     model32.load_state_dict(runner.model.state_dict())
 
-    def f32_chunk():
-        tok32 = canonical_map_tokens(model32, tmap)
+    tok32 = {}
+
+    def f32_tick(s, c, k):
+        if k == 0:  # the map tokens through this run's versions of the kernels
+            tok32["map"] = canonical_map_tokens(model32, tmap)
+        return rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C, num_steps=1,
+                             canonical=True, map_tok=tok32["map"], tick=k)[:2]
+
+    out.update(f32_loop_apart(torch, f32_tick, state0, crit0, plain_versions,
+                              kernel_versions, "f32 closed loop"))
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def f32_loop_apart(torch, tick, state0, crit0, plain_versions, kernel_versions, what,
+                   ego_on_kernels=False):
+    """One f32 chunk of CHUNK ticks from (state0, crit0), a tick at a time
+    (`tick(state, crit, k) -> (state, crit)`), through the kernels and
+    through the plain versions, recording every agent that was a CBV. The
+    loop is chaotic (a near-tied candidate choice, nearest-lane and
+    collision flags), so the share of agents ending apart (more than 1 cm,
+    or another CBV flag) is bounded, not forbidden: among the agents that
+    were CBVs in either run, which act on the kernels' output, and among
+    all agents. With `ego_on_kernels` (a learned ego, which also acts on
+    the kernels' output) the share of egos apart has the CBVs' bound."""
+    def run():
         s, c, ever_cbv = state0, crit0, state0.is_cbv.clone()
         for k in range(CHUNK):
-            s, c, _ = rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C, num_steps=1,
-                                    canonical=True, map_tok=tok32, tick=k)
+            s, c = tick(s, c, k)
             ever_cbv |= s.is_cbv
         return s, ever_cbv
 
-    got, got_cbv = f32_chunk()
+    got, got_cbv = run()
     plain_versions()
     try:
-        ref, ref_cbv = f32_chunk()
+        ref, ref_cbv = run()
     finally:
         kernel_versions()
     torch.cuda.synchronize()
     cbv = got_cbv | ref_cbv
     if not torch.isfinite(got.pos).all() or not bool(cbv.any()):
-        raise AssertionError("f32 closed loop: non-finite positions or no CBV")
+        raise AssertionError(f"{what}: non-finite positions or no CBV")
     apart = torch.linalg.norm(got.pos - ref.pos, dim=-1) > 1e-2
     apart |= got.is_cbv != ref.is_cbv
-    cbv_share = apart[cbv].float().mean().item()
-    share = apart.float().mean().item()
-    if not (cbv_share <= LOOP_CBVS_APART and share <= LOOP_AGENTS_APART):
+    out = {
+        "f32_cbvs": int(cbv.sum()),
+        "f32_cbvs_apart_share": apart[cbv].float().mean().item(),
+        "f32_agents_apart_share": apart.float().mean().item(),
+        "f32_egos_apart": int(apart[:, 0].sum()),
+        "f32_max_pos_err_of_the_rest": (
+            (got.pos - ref.pos)[~apart].abs().max().item() if (~apart).any() else 0.0),
+    }
+    egos_share = out["f32_egos_apart"] / apart.shape[0]
+    if not (out["f32_cbvs_apart_share"] <= LOOP_CBVS_APART
+            and out["f32_agents_apart_share"] <= LOOP_AGENTS_APART
+            and (not ego_on_kernels or egos_share <= LOOP_CBVS_APART)):
         raise AssertionError(
-            f"f32 closed loop: {cbv_share} of {int(cbv.sum())} CBVs apart (bound "
-            f"{LOOP_CBVS_APART}), {share} of all agents apart (bound {LOOP_AGENTS_APART})"
-        )
-    out["f32_cbvs"] = int(cbv.sum())
-    out["f32_cbvs_apart_share"] = cbv_share
-    out["f32_agents_apart_share"] = share
-    out["f32_max_pos_err_of_the_rest"] = (
-        (got.pos - ref.pos)[~apart].abs().max().item() if (~apart).any() else 0.0
-    )
-    out["seconds"] = time.perf_counter() - t0
-    return out, launches
+            f"{what}: {out['f32_cbvs_apart_share']} of {out['f32_cbvs']} CBVs apart (bound "
+            f"{LOOP_CBVS_APART}), {out['f32_agents_apart_share']} of all agents apart (bound "
+            f"{LOOP_AGENTS_APART}), {out['f32_egos_apart']} of {apart.shape[0]} egos apart "
+            f"(bound {LOOP_CBVS_APART if ego_on_kernels else 'none'})")
+    return out
 
 
 FINE_TUNED = ("rift_pluto", "grpo_pluto", "reinforce_pluto", "rs_pluto", "sft_pluto",
@@ -1318,34 +1436,10 @@ def default_loop(torch, tmap, counters, plain_versions, kernel_versions):
                          dtype=torch.float32).eval()
     model32.load_state_dict(runner.model.state_dict())
 
-    def f32_chunk():
-        s, c, ever_cbv = state0, crit0, state0.is_cbv.clone()
-        for k in range(CHUNK):
-            s, c, _ = rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C, num_steps=1,
-                                    ego="pdm", tick=k)
-            ever_cbv |= s.is_cbv
-        return s, ever_cbv
-
-    got, got_cbv = f32_chunk()
-    plain_versions()
-    try:
-        ref, ref_cbv = f32_chunk()
-    finally:
-        kernel_versions()
-    torch.cuda.synchronize()
-    cbv = got_cbv | ref_cbv
-    if not torch.isfinite(got.pos).all() or not bool(cbv.any()):
-        raise AssertionError("f32 PDM loop: non-finite positions or no CBV")
-    apart = torch.linalg.norm(got.pos - ref.pos, dim=-1) > 1e-2
-    apart |= got.is_cbv != ref.is_cbv
-    out["f32_cbvs"] = int(cbv.sum())
-    out["f32_cbvs_apart_share"] = apart[cbv].float().mean().item()
-    out["f32_agents_apart_share"] = apart.float().mean().item()
-    out["f32_egos_apart"] = int(apart[:, 0].sum())
-    if not (out["f32_cbvs_apart_share"] <= LOOP_CBVS_APART
-            and out["f32_agents_apart_share"] <= LOOP_AGENTS_APART):
-        raise AssertionError(f"f32 PDM loop: {out['f32_cbvs_apart_share']} of CBVs, "
-                             f"{out['f32_agents_apart_share']} of agents apart")
+    f32_tick = lambda s, c, k: rollout_chunk(model32, tmap, spec, s, c, max_cbvs=C,
+                                             num_steps=1, ego="pdm", tick=k)[:2]
+    out.update(f32_loop_apart(torch, f32_tick, state0, crit0, plain_versions, kernel_versions,
+                              "f32 PDM loop"))
     out["seconds"] = time.perf_counter() - t0
     return out, launches
 
@@ -1401,6 +1495,270 @@ def default_cli(torch, counters):
     return out, launches
 
 
+def write_route_file(path, groups=ROUTE_GROUPS):
+    """A route file in the Bench2Drive schema, written here (the repository
+    ships none): `groups` copies, 3 km apart, of a straight route, an L
+    with one corner (a junction in the route town) and a crossing pair
+    (within 100 m of each other, so the data loader batches them apart; a
+    shared junction in the shared town), each with weather keyframes at 0
+    and 100 % of the route. Ids run 1, 2, ... in that order."""
+    routes, rid = [], 0
+    for g in range(groups):
+        x0 = 3000.0 * g
+        shapes = (
+            [(x0 + 40.0 * i, 0.0) for i in range(6)],  # straight, 200 m
+            [(x0, 400.0), (x0 + 150.0, 400.0), (x0 + 150.0, 480.0)],  # L
+            [(x0 + 40.0 * i, 900.0) for i in range(7)],  # crossing, east
+            [(x0 + 120.0, 800.0 + 40.0 * i) for i in range(6)],  # crossing, north
+        )
+        for k, pts in enumerate(shapes):
+            rid += 1
+            fog, rain = (20 * k, 10 * g)
+            wps = "".join(f'<position x="{x}" y="{y}" z="0.0"/>' for x, y in pts)
+            routes.append(
+                f'<route id="{rid}" town="Town{12 + g % 2}"><weathers>'
+                f'<weather route_percentage="0" cloudiness="10.0" precipitation="0.0" '
+                f'fog_density="{fog}"/><weather route_percentage="100" cloudiness="80.0" '
+                f'precipitation="{rain}" fog_density="{fog}"/></weathers>'
+                f"<waypoints>{wps}</waypoints></route>")
+    with open(path, "w") as f:
+        f.write("<routes>\n" + "\n".join(routes) + "\n</routes>\n")
+    return path
+
+
+def ptxas_usage(log):
+    """{kernel: [registers, spill store bytes, spill load bytes]} of each
+    __global__ function in an nvcc -Xptxas -v log, by its demangled name
+    (without its parameter list) where c++filt is on the machine."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [0, 0, 0]
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn][0] = int(m.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) != len(out):
+        names = list(out)
+    short = lambda n: re.sub(r"^void |\(anonymous namespace\)::|\(.*\)$", "", n)
+    return {short(n): v for n, v in zip(names, out.values())}
+
+
+def recog_ticks(tick, n):
+    """Env steps among ticks tick .. tick+n-1 that run recognition."""
+    from rift_tpu_torch.scenario.recognition import RECOG_INTERVAL, RECOG_WARMUP_TICKS
+
+    return sum(1 for t in range(tick + 1, tick + n + 1)
+               if t > RECOG_WARMUP_TICKS and t % RECOG_INTERVAL == 0)
+
+
+def route_launches(n_ticks, tick=0, with_policy=True):
+    """Kernel launches of n ticks of the route eval from `tick`: the PlanT
+    ego's 8 attention launches every tick, the recognizer's 4 on each
+    recognition tick, and with the Pluto CBVs on legacy tokens their act's
+    (17 attention, 1 whole encoder, 2 PointNet)."""
+    want = act_launches(n_ticks if with_policy else 0, legacy=True)
+    want["fused_attention"] += (PLANT_EGO["num_layers"] * n_ticks
+                                + PLANT_RECOG["num_layers"] * recog_ticks(tick, n_ticks))
+    return want
+
+
+def plant_models(torch):
+    """PlanT_medium as the ego and the recognizer, from seeded CPU
+    generators, on the card, f32, without gradients."""
+    from rift_tpu_torch.models.plant import PlanTModel, init_plant_weights
+
+    make = lambda dims, seed: init_plant_weights(
+        PlanTModel(**dims), torch.Generator().manual_seed(seed)
+    ).to("cuda").eval().requires_grad_(False)
+    return make(PLANT_EGO, 0), make(PLANT_RECOG, 1)
+
+
+def route_path(torch, counters, route_file, plain_versions, kernel_versions):
+    """Phase 14: this slice's main path. The route file's first batch of
+    the Eval data loader (every route that overlaps none before it:
+    straight, L and one of each crossing pair) becomes one route town on
+    the card (map_from_routes, the CLI's 256-lane pad and stop ratio);
+    shared_map_from_routes builds the town of all routes. TrafficEnv.reset
+    puts each scenario on its route; then rollout_chunk with the PlanT_medium
+    ego (f32), the default Pluto CBVs on legacy tokens (phase 4's width,
+    bf16) and attention recognition, two K=40 chunks with exact launch
+    counts; env-steps/s as phase 12 times them (and the world's alone with
+    the PlanT ego); one f32 chunk through the kernels and the plain
+    versions at phase 9's bounds, the PlanT egos apart at the CBVs'. Before
+    the chunks, the attention kernel against its plain version at PlanT's
+    shapes at the batch's n scenarios and at the CLI's 4."""
+    from rift_tpu_torch.map import route_waypoints
+    from rift_tpu_torch.map.from_route import map_from_routes, shared_map_from_routes
+    from rift_tpu_torch.models.pluto import PlutoModel
+    from rift_tpu_torch.ops import attention
+    from rift_tpu_torch.rollout import rollout_chunk
+    from rift_tpu_torch.scenario import TrafficEnv
+    from rift_tpu_torch.scenario.routes import EvalDataLoader, parse_routes_file
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    cfgs = parse_routes_file(route_file)
+    batch = EvalDataLoader(cfgs, S).sampler()
+    n = len(batch)
+    t1 = time.perf_counter()
+    tmap, paths = map_from_routes([c.keypoints for c in batch], num_lanes=2, pad_lanes_to=256,
+                                  stop_ratio=0.25)
+    out["route_town_s"] = time.perf_counter() - t1
+    tmap = tmap.replace(light_group=torch.full_like(tmap.light_group, -1))
+    t1 = time.perf_counter()
+    shared, shared_paths = shared_map_from_routes([c.keypoints for c in cfgs], num_lanes=2,
+                                                  stop_ratio=0.25)
+    out["shared_town_s"] = time.perf_counter() - t1
+    out["route_town"] = {"routes": n, "lanes": int(tmap.valid.sum()), "pad": tmap.num_lanes,
+                         "junction_lanes": int(tmap.is_junction.sum()),
+                         "stop_lanes": int(tmap.stop_lane.sum()),
+                         "grid_cell_m": 1.0 / float(tmap.grid_inv_cell)}
+    out["shared_town"] = {"routes": len(cfgs), "lanes": int(shared.valid.sum()),
+                          "pad": shared.num_lanes,
+                          "junction_lanes": int(shared.is_junction.sum())}
+    if (tmap.device.type != "cuda" or shared.device.type != "cuda" or len(paths) != n
+            or not all(len(p) >= 3 for p in paths + shared_paths)
+            or not bool(tmap.is_junction.any()) or not bool(tmap.stop_lane.any())):
+        raise AssertionError(f"route towns: {out['route_town']}, {out['shared_town']}")
+
+    # the kernel against its plain version at PlanT's shapes at this batch's
+    # n scenarios and at the CLI's default 4, f32 (1e-5) and bf16 (2e-2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    err = attention_errors(torch, attention, gen, [
+        shape for b in sorted({n, 4}) for shape in plant_attention_shapes(b).values()])
+    out["plant_attention_at_batch"] = {"batches": sorted({n, 4}), "max_abs_err": err["float32"],
+                                       "max_abs_err_bf16": err["bfloat16"]}
+
+    env = TrafficEnv(tmap, num_scenarios=n, num_agents=A, max_cbvs=C, seed=0)
+    state0, crit0, spec = env.reset(routes=[route_waypoints(tmap, p) for p in paths],
+                                    lane_paths=paths)
+    torch.manual_seed(0)
+    pluto = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
+    ego, recog = plant_models(torch)
+    run = lambda s, c, tick, **kw: rollout_chunk(
+        pluto, tmap, spec, s, c, max_cbvs=C, num_steps=CHUNK, ego="plant", ego_model=ego,
+        recog_model=recog, tick=tick, **kw)[:2]
+
+    s, c = state0, crit0
+    for k in range(2):
+        zero_launches(counters)
+        s, c = run(s, c, k * CHUNK)
+        torch.cuda.synchronize()
+        path = f"route_plant_eval_{k}"
+        launches[path] = read_launches(counters)
+        check_counts(path, launches[path], route_launches(CHUNK, k * CHUNK))
+    promoted = int(s.is_cbv.sum())
+    if not torch.isfinite(s.pos).all() or promoted == 0:
+        raise AssertionError(f"route eval: non-finite positions or no CBV ({promoted})")
+    out["scenarios"], out["cbvs_after_two_chunks"] = n, promoted
+
+    def steps_per_s(**kw):
+        run(state0, crit0, 0, **kw)
+        best = math.inf
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(state0, crit0, 0, **kw)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t1)
+        return CHUNK * n / best
+
+    out["eval_env_steps_per_s"] = steps_per_s()
+    out["world_only_env_steps_per_s"] = steps_per_s(with_policy=False)
+    model32 = PlutoModel(encoder_depth=4, decoder_depth=4, dtype=torch.float32).eval()
+    model32.load_state_dict(pluto.state_dict())
+    f32_tick = lambda s, c, k: rollout_chunk(
+        model32, tmap, spec, s, c, max_cbvs=C, num_steps=1, ego="plant", ego_model=ego,
+        recog_model=recog, tick=k)[:2]
+    out.update(f32_loop_apart(torch, f32_tick, state0, crit0, plain_versions, kernel_versions,
+                              "f32 route loop", ego_on_kernels=True))
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def route_cli(torch, counters, route_file):
+    """Phase 15: the CLI on the route file. `run.main` in eval with the
+    PlanT_medium ego and attention recognition at the default num_scenario
+    (4) over routes 1-5 (route 4 crosses 3, so the loader gives [1, 2, 3,
+    5], then [4] padded to 4 scenarios): two episodes of 60 ticks, exact
+    launch counts, records with the five route ids (the padded batch makes
+    one) and their weather; `--shared_town` for one episode; and
+    train_cbv on the routes at depth 1 with a 256-sample buffer until a
+    fit round, which takes the re-tracking and reference-line kernels on
+    route towns."""
+    import os
+    import shutil
+
+    from rift_tpu_torch import run
+    from rift_tpu_torch.scenario.routes import parse_routes_file
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    cli_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_cli_routes")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    common = ["--routes", route_file, "--routes_subset", "1-5", "--out_dir", cli_dir]
+    ticks = 60
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    g = run.main(["--mode", "eval", "--ego_cfg", "plant", "--cbv_recog", "attention",
+                  "--num_episodes", "2", "--max_ticks", str(ticks), *common])
+    torch.cuda.synchronize()
+    out["cli_eval_s"] = time.perf_counter() - t1
+    launches["cli_route_eval"] = read_launches(counters)
+    check_counts("CLI route eval", launches["cli_route_eval"],
+                 add(route_launches(ticks), route_launches(ticks)))
+    cfgs = {c.name: c for c in parse_routes_file(route_file, "1-5")}
+    with open(os.path.join(cli_dir, "eval", "plant-rift_pluto-seed0",
+                           "simulation_results.json")) as f:
+        records = json.load(f)["records"]
+    ids = [r["route_id"] for r in records]
+    weather_ok = all(r["weather"] and r["weather"] == cfgs[r["route_id"]].weather.at(
+        r["route_completion"]) for r in records)
+    if g.total_routes != 5 or sorted(ids) != sorted(cfgs) or not weather_ok:
+        raise AssertionError(f"CLI route eval: {g.total_routes} routes, ids {ids}, "
+                             f"weather recorded: {weather_ok}")
+    out["cli_eval"] = {"route_ids": ids, "avg_driving_score": g.avg_driving_score,
+                       "avg_route_completion": g.avg_route_completion}
+
+    t1 = time.perf_counter()
+    g = run.main(["--mode", "eval", "--shared_town", "--ego_cfg", "plant",
+                  "--num_episodes", "1", "--max_ticks", "20", *common])
+    torch.cuda.synchronize()
+    out["cli_shared_town_s"] = time.perf_counter() - t1
+    if g.total_routes != 4:
+        raise AssertionError(f"CLI --shared_town: {g.total_routes} routes")
+
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    g = run.main(["--mode", "train_cbv", "--ego_cfg", "behavior", "--routes", route_file,
+                  "--num_scenario", "16", "--num_agents", str(A), "--num_episodes", "1",
+                  "--max_ticks", "80", "--out_dir", cli_dir, "encoder_depth=1",
+                  "decoder_depth=1", "buffer_capacity=256"])
+    torch.cuda.synchronize()
+    out["cli_train_cbv_s"] = time.perf_counter() - t1
+    launches["cli_route_train_cbv"] = read_launches(counters)
+    ckpt = os.path.join(cli_dir, "train_cbv", "behavior-rift_pluto-seed0", "model_ckpt")
+    got = launches["cli_route_train_cbv"]
+    fitted = os.path.isdir(ckpt) and os.listdir(ckpt)
+    if not (got["retrack_rollout"] > 0 and got["refline_matrices"] > 0 and fitted
+            and math.isfinite(g.avg_driving_score)):
+        raise AssertionError(f"CLI route train_cbv: launches {got}, checkpoints {fitted}")
+    out["cli_train_cbv"] = {"routes": g.total_routes, "checkpoints": sorted(os.listdir(ckpt))}
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1425,10 +1783,11 @@ def main() -> int:
     logs = build.build_all(
         ["attention", "points", "retrack", "refline", "history_stage", "history_encoder"]
     )
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"# {name}: {line.strip()}", file=sys.stderr)
+    usage = {name: ptxas_usage(log) for name, log in logs.items()}
+    for name, fns in usage.items():
+        for fn, (regs, st, ld) in fns.items():
+            print(f"# {name}: {fn}: {regs} registers, spill stores {st} B, loads {ld} B",
+                  file=sys.stderr)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1439,7 +1798,9 @@ def main() -> int:
     # count sizes the map-token check), and the gradients through them
     tmap = make_grid_town(blocks=2, num_lanes=2)
     results = {
-        "fused_attention": check_attention(torch, attention),
+        "fused_attention": {**check_attention(torch, attention),
+                            "ptxas": usage["attention"],
+                            "plant": check_plant_attention(torch, attention)},
         "points_encoder": check_points(torch, points, tmap.num_lanes),
         "retrack_rollout": check_retrack(torch, retrack),
         "refline_matrices": check_refline(torch, refline),
@@ -1627,6 +1988,24 @@ def main() -> int:
     launches.update(cli_launches)
     print(f"# default CLI done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
+    # ---- phases 14-15: route files, the PlanT ego and attention recognition
+    import os
+
+    route_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "chip_smoke_routes.xml")
+    os.makedirs(os.path.dirname(route_file), exist_ok=True)
+    write_route_file(route_file)
+    route, route_path_launches = route_path(torch, counters, route_file, plain_versions,
+                                        kernel_versions)
+    launches.update(route_path_launches)
+    print(f"# route loop done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    rcli, rcli_launches = route_cli(torch, counters, route_file)
+    launches.update(rcli_launches)
+    print(f"# route CLI done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    for name in ("fused_attention", "points_encoder", "history_encoder"):
+        if not launches["route_plant_eval_0"][name] > 0:
+            raise AssertionError(f"{name}: no launch on the route eval")
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -1673,6 +2052,8 @@ def main() -> int:
         "legacy_tokens": legacy,
         "closed_loop_defaults": pdm_loop,
         "cli_defaults": cli,
+        "route_plant_eval": route,
+        "route_cli": rcli,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

@@ -8,13 +8,14 @@
 // additive f32 key pad [B,Tk] (0 or -1e9, never -inf: a fully masked row
 // gets uniform weights, not NaN). Logits and softmax in f32; the weights are
 // normalised, then rounded to the input type before the AV product, which
-// accumulates in f32. 1 <= Tk <= 128, Dh = D/H <= 32.
+// accumulates in f32. 1 <= Tk <= 128, Dh = D/H <= 64.
 //
 // What bounds it on the H100. At the planner's shapes (T = 1..97 tokens,
-// Dh 16 or 32) a head does ~4*Tq*Tk*Dh flops per ~(2*Tq + 2*Tk)*Dh*2 bytes,
-// well below the ~295 flop/byte ridge: the bound is bytes, and what keeps a
-// kernel from it is latency and issue (the first version, scalar f32 FMA
-// chains with one warp per query row, ran at 20x its byte bound). So the
+// Dh 16 or 32; PlanT's 19 tokens at Dh 64 or 32) a head does
+// ~4*Tq*Tk*Dh flops per ~(2*Tq + 2*Tk)*Dh*2 bytes, well below the ~295
+// flop/byte ridge: the bound is bytes, and what keeps a kernel from it is
+// latency and issue (the first version, scalar f32 FMA chains with one
+// warp per query row, ran at 20x its byte bound). So the
 // arithmetic goes to the tensor cores in warp-sized tiles that keep every
 // intermediate in registers:
 //
@@ -36,11 +37,17 @@
 //   of each 8-deep slice are taken in the order (2t, 2t+1) -> (t, t+4),
 //   which makes the C layout the A layout, and V's rows are read in the
 //   same order.
+// - Head dims up to 32 and from 33 to 64 are two instantiations (the
+//   template's DP). At Dh 64 a warp holds 8 n8 tiles of output, 32 f32 a
+//   thread, beside the 64 of the scores at Tk = 128; in f32 Q's split
+//   3xTF32 fragments of all 8 k8 slices would add 64 more, so the f32
+//   QK^T loop runs slice by slice, each slice's fragment loaded from shared
+//   memory once for all keys (each score sums its slices in order).
 // - K and V of a (batch row, head) are staged once in shared memory with
 //   16-byte cp.async copies (a bf16 head row of 32 is 64 bytes, four
-//   copies), rows padded by 16 bytes so that ldmatrix and the fragment
-//   loads hit 32 banks; ldmatrix.trans serves V. Rows from Tk up to the
-//   next multiple of 16 are zero-filled by the copies themselves: a zero
+//   copies; of 64, eight), rows padded by 16 bytes so that ldmatrix and
+//   the fragment loads hit 32 banks; ldmatrix.trans serves V. Rows from Tk
+//   up to the next multiple of 16 are zero-filled by the copies: a zero
 //   weight times stale shared memory could be NaN. Each warp stages its
 //   own query tile the same way. The copies run in flat loops decoded by
 //   shifts and one multiply-high division by H.
@@ -61,8 +68,10 @@
 // against 1.25 ms, 3.7x the byte bound of 0.063 ms; a fit step's 17
 // (batch 256) 0.28 ms against 1.87. Launched from Python the 17 take 0.5-
 // 1.3 ms, against 1.27 for the first version: the wrapper's host cost per
-// call (~25-70 us) now exceeds the kernel's 5-22 us. PERF.md section 6
-// keeps the numbers.
+// call (~25-70 us) now exceeds the kernel's 5-22 us. At head dim 64
+// (PlanT_medium's ego: 64 rows of 19 tokens, D 512, 8 heads, f32) a launch
+// takes 12 us of device time, 4.0x its byte bound, against SDPA's 34 us.
+// PERF.md section 6 keeps the numbers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +83,7 @@
 namespace {
 
 constexpr int kMaxTk = 128;
-constexpr int kMaxDh = 32;
+constexpr int kMaxDh = 64;
 constexpr int kMaxWarps = 8;     // warps sharing one (batch row, head)
 constexpr int kBlockWarps = 4;   // warps per block when Tq <= 16
 constexpr int kSmemTarget = 64 * 1024;
@@ -155,13 +164,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b, bool 
 }
 
 // Shared-memory geometry of one element type: head rows padded to DhP, a
-// power of two (bf16: 16 or 32 for the k16 slices; f32: 8, 16 or 32) and a
-// row stride of DhP plus 16 bytes.
+// power of two (bf16: 16, 32 or 64 for the k16 slices; f32: 8, 16, 32 or
+// 64) and a row stride of DhP plus 16 bytes, a multiple of 16 bytes whose
+// 4-word shift per row keeps ldmatrix's 8 rows and the f32 fragment loads
+// on 32 distinct banks.
 template <typename T>
 struct Geo {
   static constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte copy
   __host__ __device__ static int dh_pad(int Dh) {
-    return Dh <= 8 && sizeof(T) == 4 ? 8 : Dh <= 16 ? 16 : 32;
+    return Dh <= 8 && sizeof(T) == 4 ? 8 : Dh <= 16 ? 16 : Dh <= 32 ? 32 : 64;
   }
   __host__ __device__ static int ld(int Dh) { return dh_pad(Dh) + kVec; }
 };
@@ -219,8 +230,9 @@ struct Args {
 // One warp's 16-row tile. PK = 1: query rows i0 .. i0+15 of problem p0
 // against its KT x 16 keys. PK > 1: PK problems p0 .. p0+PK-1 side by side
 // in slots of Z = 16/PK query rows and Z keys (Tq, Tk <= Z), a slot's rows
-// masked to its own keys. Writes the rows that exist.
-template <typename T, int KT, int PK>
+// masked to its own keys. DP (32 or 64) bounds the padded head dim DhP.
+// Writes the rows that exist.
+template <typename T, int KT, int PK, int DP>
 __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T* ks,
                                             const T* vs, const float* kp, int ld, int i0,
                                             int p0) {
@@ -229,7 +241,7 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int Dh = a.D / a.H;
-  const int DhP = Geo<T>::dh_pad(Dh);
+  const int DhP = min(Geo<T>::dh_pad(Dh), DP);  // DP bounds it for the compiler
   const int P = a.B * a.H;
 
   // ---- S = Q K^T in the C layout: s[jt][n] is the n8 tile of keys
@@ -244,14 +256,14 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
 
   if constexpr (kBf16) {
     const int DK = DhP / 16;  // k16 slices of the head dimension
-    uint32_t qa[2][4];
+    uint32_t qa[DP / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
       if (kk < DK) ldsm_x4(qa[kk], qs + (lane & 15) * ld + kk * 16 + ((lane >> 4) << 3));
 #pragma unroll
     for (int jt = 0; jt < KT; ++jt)
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         if (kk >= DK) continue;
         // matrices: keys +0..7 / +8..15 (lane >> 4), columns +0 / +8
         uint32_t kb[4];
@@ -261,28 +273,29 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
         mma_bf16(s[jt][1], qa[kk], kb[2], kb[3]);
       }
   } else {
+    // slice by slice, one split Q fragment at a time: each score sums its
+    // k8 slices in order, each slice's product from zero
     const int NK = DhP / 8;  // k8 slices of the head dimension
-    uint32_t qh[4][4], ql[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      if (kk < NK) tc::load_a(qs, ld, 0, kk * 8, qh[kk], ql[kk]);
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      if (kk >= NK) continue;
+      uint32_t qh[4], ql[4];
+      tc::load_a(qs, ld, 0, kk * 8, qh, ql);
 #pragma unroll
-    for (int jt = 0; jt < KT; ++jt)
+      for (int jt = 0; jt < KT; ++jt)
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (kk >= NK) continue;
+        for (int n = 0; n < 2; ++n) {
           // B[k][key] = K[key][k]: b0 (k = t, key g), b1 (k = t + 4, key g)
           const float* kr = ks + (jt * 16 + n * 8 + g) * ld + kk * 8 + t;
           uint32_t bh[2], bl[2];
           tc::split(kr[0], bh[0], bl[0]);
           tc::split(kr[4], bh[1], bl[1]);
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          tc::mma3(d, qh[kk], ql[kk], bh, bl);
+          tc::mma3(d, qh, ql, bh, bl);
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[jt][n][e] += d[e];
         }
+    }
   }
 
   // ---- this thread's rows g and g + 8: their problem, query row, bias
@@ -353,9 +366,9 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
 
   // ---- O = W V, the weights reused in registers as the A operand;
   // o[nd] is the n8 tile of head columns 8nd .. 8nd+7
-  float o[4][4];
+  float o[DP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < 4; ++nd)
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
   const int ND = DhP / 8;
@@ -369,7 +382,7 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
                              pack_bf16(s[kk][1][0], s[kk][1][1]),
                              pack_bf16(s[kk][1][2], s[kk][1][3])};
 #pragma unroll
-      for (int dp = 0; dp < 2; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         if (2 * dp >= ND) continue;
         // matrices: keys +0..7 / +8..15 (bit 3 of lane), columns +0 / +8
         uint32_t vb[4];
@@ -393,7 +406,7 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
         tc::split(s[jt][n][3], wh[3], wl[3]);
         const float* vr = vs + (8 * c + 2 * t) * ld + g;
 #pragma unroll
-        for (int nd = 0; nd < 4; ++nd) {
+        for (int nd = 0; nd < DP / 8; ++nd) {
           if (nd >= ND) continue;
           uint32_t bh[2], bl[2];
           tc::split(vr[nd * 8], bh[0], bl[0]);
@@ -411,7 +424,7 @@ __device__ __forceinline__ void attend_tile(const Args& a, const T* qs, const T*
   for (int hr = 0; hr < 2; ++hr) {
     if (!live[hr]) continue;
 #pragma unroll
-    for (int nd = 0; nd < 4; ++nd) {
+    for (int nd = 0; nd < DP / 8; ++nd) {
       const int d = nd * 8 + 2 * t;
       if (nd < ND && d < Dh)
         store2(orow[hr] + d, o[nd][2 * hr], o[nd][2 * hr + 1], d + 1 < Dh, pair);
@@ -491,11 +504,11 @@ __device__ __forceinline__ void issue(const Args& a, int task, unsigned char* bu
 // the copies of its next task before it computes the current one (two
 // buffers). A task is `upb` units; a unit is one problem (b, h) = p / H,
 // p % H shared by `gw` warps, or PK problems in one warp's slots.
-template <typename T, int KT, int PK>
-__global__ void __launch_bounds__(kMaxWarps * 32) attention_kernel(const Args a) {
+template <typename T, int KT, int PK, int DP>
+__device__ __forceinline__ void attention_body(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int TkP = KT * 16;
-  const int ld = Geo<T>::ld(a.D / a.H);
+  const int ld = min(Geo<T>::dh_pad(a.D / a.H), DP) + Geo<T>::kVec;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   // per buffer: K, V [upb][2][TkP][ld], key pad [upb][TkP], queries [warps][16][ld]
@@ -528,7 +541,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) attention_kernel(const Args a)
           cp_wait<0>();
           __syncwarp();
         }
-        attend_tile<T, KT, PK>(a, q_s, ks, ks + TkP * ld, kp, ld, i0, p0);
+        attend_tile<T, KT, PK, DP>(a, q_s, ks, ks + TkP * ld, kp, ld, i0, p0);
       }
     }
     __syncthreads();  // the buffer is free for the task after next
@@ -536,6 +549,30 @@ __global__ void __launch_bounds__(kMaxWarps * 32) attention_kernel(const Args a)
 }
 
 template <typename T, int KT, int PK>
+__global__ void __launch_bounds__(kMaxWarps * 32) attention_kernel(const Args a) {
+  attention_body<T, KT, PK, 32>(a);
+}
+
+// Head dims 33..64. With the default bounds ptxas holds some tile counts
+// to 128 registers a thread (two blocks of 8 warps an SM) and spills; one
+// block an SM lets them take what they need.
+template <typename T, int KT, int PK>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) attention_kernel_dh64(const Args a) {
+  attention_body<T, KT, PK, 64>(a);
+}
+
+template <typename T, int KT, int PK, int DP>
+inline auto kernel_of() {
+  if constexpr (DP > 32)
+    return attention_kernel_dh64<T, KT, PK>;
+  else
+    return attention_kernel<T, KT, PK>;
+}
+
+// Shared memory per block follows Dh and Tk: at Dh 64 in f32 and Tk = 128
+// a unit's K and V take 2 x 128 x 272 bytes, so a block above 48 KB opts
+// in (at most 2 x (70144 + 34816) bytes, Tq > 112, within the 227 KB).
+template <typename T, int KT, int PK, int DP>
 int launch(Args a, cudaStream_t st) {
   constexpr int TkP = KT * 16;
   const int Dh = a.D / a.H;
@@ -566,7 +603,7 @@ int launch(Args a, cudaStream_t st) {
     int sms = 0, occ_threads = 0, occ_blocks = 0;
   };
   static Cache caches[kMaxDevices];
-  auto kernel = attention_kernel<T, KT, PK>;
+  auto kernel = kernel_of<T, KT, PK, DP>();
   int dev = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -591,14 +628,14 @@ int launch(Args a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const Args& a, cudaStream_t st) {
+template <typename T, int DP>
+int dispatch_dp(const Args& a, cudaStream_t st) {
   // sequences of <= 4 tokens go four to a warp's 16 rows
-  if (a.Tq <= 4 && a.Tk <= 4) return launch<T, 1, 4>(a, st);
+  if (a.Tq <= 4 && a.Tk <= 4) return launch<T, 1, 4, DP>(a, st);
   switch ((a.Tk + 15) / 16) {
 #define RIFT_ATTN_KT(n) \
   case n:               \
-    return launch<T, n, 1>(a, st);
+    return launch<T, n, 1, DP>(a, st);
     RIFT_ATTN_KT(1)
     RIFT_ATTN_KT(2)
     RIFT_ATTN_KT(3)
@@ -610,6 +647,11 @@ int dispatch(const Args& a, cudaStream_t st) {
 #undef RIFT_ATTN_KT
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch(const Args& a, cudaStream_t st) {
+  return a.D / a.H <= 32 ? dispatch_dp<T, 32>(a, st) : dispatch_dp<T, 64>(a, st);
 }
 
 }  // namespace

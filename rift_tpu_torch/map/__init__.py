@@ -1,3 +1,5 @@
+from .compiler import compile_town, compile_town_from_npz, load_npz
+from .npz_fixture import lanes_to_map_data, save_npz
 from .reference_lines import build_lane_chains, reference_lines_from_chains
 from .routing import (
     nearest_lane_host,
@@ -12,6 +14,9 @@ __all__ = [
     "LANE_POINTS",
     "TensorMap",
     "build_tensor_map",
+    "compile_town",
+    "compile_town_from_npz",
+    "load_npz",
     "build_lane_chains",
     "reference_lines_from_chains",
     "trace_route",
@@ -21,4 +26,6 @@ __all__ = [
     "make_grid_town",
     "make_straight_town",
     "grid_town_lanes",
+    "lanes_to_map_data",
+    "save_npz",
 ]

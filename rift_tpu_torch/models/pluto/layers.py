@@ -40,10 +40,12 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax nn.LayerNorm (eps 1e-5): computed in f32, output in `dtype`."""
+    """flax nn.LayerNorm (eps 1e-5, as the planner sets it; flax's own
+    default, which PlanT keeps, is 1e-6): computed in f32, output in
+    `dtype`."""
 
-    def __init__(self, dim, dtype=None):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim, dtype=None, eps=1e-5):
+        super().__init__(dim, eps=eps)
         self.dt = dtype or torch.float32
 
     def forward(self, x):
@@ -240,13 +242,14 @@ class Attention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-LN encoder block (attention, then a GELU MLP)."""
+    """Pre-LN encoder block (attention, then a GELU MLP); `eps` of its
+    layer norms."""
 
-    def __init__(self, dim, num_heads, mlp_ratio=4.0, dtype=None):
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, dtype=None, eps=1e-5):
         super().__init__()
-        self.LayerNorm_0 = LayerNorm(dim, dtype)
+        self.LayerNorm_0 = LayerNorm(dim, dtype, eps)
         self.Attention_0 = Attention(dim, num_heads, dtype)
-        self.LayerNorm_1 = LayerNorm(dim, dtype)
+        self.LayerNorm_1 = LayerNorm(dim, dtype, eps)
         self.Dense_0 = Dense(dim, int(dim * mlp_ratio), dtype)
         self.Dense_1 = Dense(int(dim * mlp_ratio), dim, dtype)
 

@@ -5,7 +5,8 @@ rift_tpu/ops/attention.py).
 (`csrc/attention.cu`, the port of the TPU kernel `fused_attention_pallas`)
 on CUDA tensors and its plain PyTorch version `fused_attention_ref` on CPU
 tensors; there is no fallback from one to the other. The planner's
-attentions all come through here: T = 1..97 tokens, head dim 16 or 32.
+attentions all come through here (T = 1..97 tokens, head dim 16 or 32),
+and PlanT's (19 tokens, head dim 64 for the ego, 32 for the recognizer).
 
 It is differentiable: as the JAX package's `custom_vjp`, the backward
 saves only the inputs and recomputes through the plain version
@@ -21,7 +22,7 @@ import torch
 
 NEG_INF = -1e9
 MAX_TK = 128  # keys per row the kernel stages in shared memory
-MAX_HEAD_DIM = 32
+MAX_HEAD_DIM = 64
 
 # kernel launches since the counter was last set to 0
 launches = 0

@@ -1,5 +1,5 @@
 """Policy registries: the CBV and ego zoos (port of rift_tpu/policies.py,
-the Pluto family and the rule, PDM-Lite and expert egos).
+the Pluto family and the rule, PDM-Lite, expert and PlanT egos).
 
 `CBV_POLICY_LIST` and `EGO_POLICY_LIST` hold the ported keys only; asking
 for another raises a KeyError that names the ported ones (ROADMAP.md
@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from .models.plant import PlanTModel, init_plant_weights, plant_ego_waypoints
+from .models.plant.train import load_plant_weights
 from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
 from .rl import (
     TrainConfig,
@@ -113,7 +115,7 @@ class PlutoPolicy:
                 device=tmap.device,
             ).eval()
         self.gen = torch.Generator(tmap.device).manual_seed(seed)
-        self._map_tok = None
+        self._map_tok = self._map_tok_of = None
 
     def act(self, spec, state, train=False):
         return pluto_cbv_act(
@@ -124,12 +126,14 @@ class PlutoPolicy:
 
     def map_tokens(self):
         """Canonical per-lane map tokens, computed once per weight change
-        (every update of the model in place clears them); None on legacy
+        (every update of the model in place clears them) and per map (a
+        route run swaps the policy's `tmap` every episode); None on legacy
         tokens."""
         if not self.canonical:
             return None
-        if self._map_tok is None:
+        if self._map_tok is None or self._map_tok_of is not self.tmap:
             self._map_tok = canonical_map_tokens(self.model, self.tmap)
+            self._map_tok_of = self.tmap
         return self._map_tok
 
     def train_round(self, *a, **k):
@@ -471,8 +475,45 @@ class ExpertEgo(PDMLiteEgo):
     name = "expert"
 
 
+class PlanTEgo:
+    """'plant': the learned object-token transformer ego (models/plant;
+    PlanT_medium by default: dim 512, 8 layers, 8 heads). Its weights are
+    made at first use from a CPU `torch.Generator` seeded from the
+    config's `seed` (the same weights on every device), or loaded from a
+    PlanT npz (`load`). `rollout.rollout_chunk` computes its waypoints every
+    tick (ego kind "plant")."""
+
+    name = "plant"
+    type = "il"
+
+    def __init__(self, tmap, cfg=None, seed=0):
+        cfg = cfg or {}
+        self.tmap = tmap
+        self.dims = {k: cfg.get(k, d) for k, d in
+                     (("dim", 512), ("num_layers", 8), ("num_heads", 8), ("pred_len", 4))}
+        self.seed = cfg.get("seed", seed)
+        self.model = None
+
+    def init(self) -> PlanTModel:
+        """The model, made on the map's device on the first call."""
+        if self.model is None:
+            gen = torch.Generator().manual_seed(self.seed)
+            model = init_plant_weights(PlanTModel(**self.dims), gen)
+            self.model = model.to(self.tmap.device).eval().requires_grad_(False)
+        return self.model
+
+    def act(self, spec, state, train=False):
+        return plant_ego_waypoints(self.init(), spec, state)
+
+    def load(self, path: str):
+        """A trained PlanT npz in the JAX package's format (either package's
+        `save_params_npz`), loaded strictly: its dims must be this ego's."""
+        load_plant_weights(self.init(), path)
+
+
 EGO_POLICY_LIST: dict[str, Callable] = _Registry("ego", {
     "pdm_lite": PDMLiteEgo,
     "behavior": BehaviorEgo,
     "expert": ExpertEgo,
+    "plant": PlanTEgo,
 })

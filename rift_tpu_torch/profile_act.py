@@ -2,18 +2,21 @@
 closed-loop tick goes on the card.
 
     python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick] [--steps 5]
-        [--legacy] [--ego rule|pdm|expert]
+        [--legacy] [--ego rule|pdm|expert|plant] [--recog rule|attention] [--routes]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
-1..3) and the full-width bf16 PlutoModel, then traces `--steps` calls with
+1..3; with `--routes`, chip_smoke's route town of its route file's first
+batch, S=15, each scenario on its route) and the full-width bf16
+PlutoModel, then traces `--steps` calls with
 torch.profiler: pluto_cbv_act in eval or train mode (on canonical tokens
 with precomputed map tokens, or with `--legacy` on per-CBV tokens), or
 (`fit`) the train step of a fine-tune round on a batch of 256 of the train
 act's samples. `world` and `tick` reset the scenes and run 30 world-only
 ticks first (so that rule recognition has promoted CBVs), then trace the
 env step alone (the ego's waypoints of `--ego`, the world tick, criteria,
-churn, recognition on every second call) or an eval tick (the act, then
-the env step).
+churn, recognition on every second call: the rule's, or with `--recog
+attention` ranked by chip_smoke's PlanT recognizer) or an eval tick (the
+act, then the env step). The `plant` ego is chip_smoke's PlanT_medium.
 Prints one JSON line: host wall time per call, device kernel time per call,
 the device's idle share, the number of kernel launches per call, the
 launches per call of each hand-written kernel (its wrapper's counter) and
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -47,7 +51,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--legacy", action="store_true", help="per-CBV (legacy) tokens")
-    ap.add_argument("--ego", choices=("rule", "pdm", "expert"), default="rule")
+    ap.add_argument("--ego", choices=("rule", "pdm", "expert", "plant"), default="rule")
+    ap.add_argument("--recog", choices=("rule", "attention"), default="rule")
+    ap.add_argument("--routes", action="store_true", help="chip_smoke's route town")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_act: no CUDA device", file=sys.stderr)
@@ -61,8 +67,32 @@ def main() -> int:
     from rift_tpu_torch.scenario import TrafficEnv, env_step
     from torch.profiler import ProfilerActivity, profile
 
-    tmap = make_grid_town(blocks=2, num_lanes=2)
-    state, spec = cs.make_scene(torch, tmap, 0)
+    ego_model = recog = None
+    if args.ego == "plant" or args.recog == "attention":
+        ego_model, recog = cs.plant_models(torch)
+        recog = recog if args.recog == "attention" else None
+    S = cs.S
+    if args.routes:
+        from rift_tpu_torch.map import route_waypoints
+        from rift_tpu_torch.map.from_route import map_from_routes
+        from rift_tpu_torch.scenario.routes import EvalDataLoader, parse_routes_file
+
+        os.makedirs("build", exist_ok=True)
+        path = cs.write_route_file("build/profile_routes.xml")
+        batch = EvalDataLoader(parse_routes_file(path), cs.S).sampler()
+        S = len(batch)
+        tmap, paths = map_from_routes([c.keypoints for c in batch], num_lanes=2,
+                                      pad_lanes_to=256, stop_ratio=0.25)
+        tmap = tmap.replace(light_group=torch.full_like(tmap.light_group, -1))
+        env = TrafficEnv(tmap, num_scenarios=S, num_agents=cs.A, max_cbvs=cs.C)
+        reset = lambda: env.reset(routes=[route_waypoints(tmap, p) for p in paths],
+                                  lane_paths=paths)
+        state, _, spec = reset()
+    else:
+        tmap = make_grid_town(blocks=2, num_lanes=2)
+        env = TrafficEnv(tmap, num_scenarios=S, num_agents=cs.A, max_cbvs=cs.C)
+        reset = env.reset
+        state, spec = cs.make_scene(torch, tmap, 0)
     torch.manual_seed(0)
     model = PlutoModel(encoder_depth=4, decoder_depth=4).eval()
     canonical = not args.legacy
@@ -72,20 +102,21 @@ def main() -> int:
         model, tmap, spec, state, max_cbvs=cs.C, train=train, canonical=canonical, map_tok=tok
     )
     if args.mode in ("world", "tick"):
-        env = TrafficEnv(tmap, num_scenarios=cs.S, num_agents=cs.A, max_cbvs=cs.C)
-        state, crit, spec = env.reset()
+        state, crit, spec = reset()
         state, crit, _ = rollout_chunk(None, tmap, spec, state, crit, max_cbvs=cs.C,
-                                       num_steps=30, with_policy=False, tick=0)
+                                       num_steps=30, with_policy=False, recog_model=recog,
+                                       tick=0)
         ticks = iter(range(30, 10**6))
 
         def act():
-            cbv = {"ego_traj": ego_waypoints(args.ego, tmap, spec, state)}
+            cbv = {"ego_traj": ego_waypoints(args.ego, tmap, spec, state, ego_model)}
             if args.mode == "tick":
                 res = pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C,
                                     canonical=canonical, map_tok=tok)
                 cbv.update(cbv_traj=res["traj"], cbv_traj_mask=res["mask"])
             # the same state each call: ticks alternate recognition on and off
-            return env_step(tmap, spec, state, crit, max_cbvs=cs.C, tick=next(ticks), **cbv)
+            return env_step(tmap, spec, state, crit, max_cbvs=cs.C, recog_model=recog,
+                            tick=next(ticks), **cbv)
     if args.mode == "fit":
         samples, valid = cs.train_samples(torch, act())
         first = lambda t: {k: first(x) for k, x in t.items()} if isinstance(t, dict) else t[0]
@@ -134,6 +165,9 @@ def main() -> int:
             "mode": args.mode,
             "tokens": "canonical" if canonical else "legacy",
             "ego": args.ego,
+            "recognition": args.recog,
+            "town": "routes" if args.routes else "grid",
+            "scenarios": S,
             "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__,
             "cuda": torch.version.cuda,

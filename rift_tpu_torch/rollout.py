@@ -18,6 +18,7 @@ import torch
 
 from .ego.pdm_ego import pdm_ego_waypoints
 from .map.tensor_map import TensorMap
+from .models.plant.policy import plant_ego_waypoints
 from .models.pluto.policy import pluto_cbv_act
 from .rl.buffer import ring_append, ring_init
 from .rl.evaluator import GAMMA, executed_cbv_reward
@@ -122,17 +123,23 @@ def flush_pending(store_fn, pending: list):
         pending.clear()
 
 
-EGO_KINDS = ("rule", "pdm", "expert")
+EGO_KINDS = ("rule", "pdm", "expert", "plant")
 
 
-def ego_waypoints(ego: str, tmap: TensorMap, spec: ScenarioSpec, state: SimState):
+def ego_waypoints(ego: str, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
+                  ego_model=None):
     """The ego's waypoints of this tick for `rollout_chunk`'s ego kind:
     the PDM-Lite ego ("pdm"), the same with privileged lane changes
-    ("expert"), or None, which leaves env_step to the rule ego ("rule")."""
+    ("expert"), the PlanT transformer `ego_model` ("plant"), or None, which
+    leaves env_step to the rule ego ("rule")."""
     if ego == "rule":
         return None
     if ego not in EGO_KINDS:
         raise ValueError(f"ego kind {ego!r} is not ported (ported: {', '.join(EGO_KINDS)})")
+    if ego == "plant":
+        if ego_model is None:
+            raise ValueError("the plant ego needs its model (ego_model)")
+        return plant_ego_waypoints(ego_model, spec, state)
     return pdm_ego_waypoints(spec, state, tmap, lane_change=ego == "expert")
 
 
@@ -140,15 +147,18 @@ def rollout_chunk(model, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
                   crit: CriteriaState, max_cbvs: int = 3, num_steps: int = 10,
                   train: bool = False, with_policy: bool = True, ego: str = "rule",
                   canonical: bool = False, map_tok: torch.Tensor | None = None,
-                  execute_teacher: bool = False, *, tick: int):
+                  execute_teacher: bool = False, ego_model=None, recog_model=None,
+                  *, tick: int):
     """Advance all scenarios `num_steps` ticks: each tick the ego's
-    waypoints (`ego`: "rule", "pdm" or "expert", computed in the loop, as
-    the JAX package computes them in its scan), the Pluto CBVs' act (legacy
+    waypoints (`ego`: "rule", "pdm", "expert" or "plant" with its PlanTModel
+    `ego_model`, computed in the loop, as the JAX package computes them in
+    its scan), the Pluto CBVs' act (legacy
     per-CBV tokens, or with `canonical` frame-invariant ones, `map_tok`
     precomputed), then the env step; `with_policy=False` runs the world
     alone. `execute_teacher` (train mode) makes the CBVs execute the
-    teacher's path, as the BC pretrain collects. `tick` is the state's
-    tick, kept on the host (`TrafficEnv.advance`).
+    teacher's path, as the BC pretrain collects. `recog_model` (a PlanT
+    scorer) makes env_step's recognition the attention one. `tick` is the
+    state's tick, kept on the host (`TrafficEnv.advance`).
 
     Returns (state, crit, extras). In train mode, extras stacks the per-tick
     buffer samples with leading dims [num_steps, S*C]: features, old_logits,
@@ -157,7 +167,7 @@ def rollout_chunk(model, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
     """
     pending = []
     for k in range(num_steps):
-        ego_traj = ego_waypoints(ego, tmap, spec, state)
+        ego_traj = ego_waypoints(ego, tmap, spec, state, ego_model)
         if with_policy:
             res = pluto_cbv_act(
                 model, tmap, spec, state, max_cbvs=max_cbvs, train=train,
@@ -165,11 +175,12 @@ def rollout_chunk(model, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
             )
             state, crit = env_step(
                 tmap, spec, state, crit, cbv_traj=res["traj"], cbv_traj_mask=res["mask"],
-                ego_traj=ego_traj, max_cbvs=max_cbvs, tick=tick + k,
+                ego_traj=ego_traj, max_cbvs=max_cbvs, recog_model=recog_model,
+                tick=tick + k,
             )
             if train:
                 pending.append(tick_extras(tmap, res, state, crit))
         else:
             state, crit = env_step(tmap, spec, state, crit, ego_traj=ego_traj,
-                                   max_cbvs=max_cbvs, tick=tick + k)
+                                   max_cbvs=max_cbvs, recog_model=recog_model, tick=tick + k)
     return state, crit, _with_returns(_stack(pending)) if pending else None

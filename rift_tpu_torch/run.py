@@ -1,5 +1,5 @@
 """CLI entry: mode dispatch over the policy zoos (port of rift_tpu/run.py,
-the modes `eval` and `train_cbv` on the synthetic towns).
+the modes `eval` and `train_cbv` on the synthetic towns and on route files).
 
   eval       closed-loop benchmark and leaderboard statistics
   train_cbv  fine-tune the CBV policy: buffer full -> fit -> the updated
@@ -7,19 +7,33 @@ the modes `eval` and `train_cbv` on the synthetic towns).
 
     python -m rift_tpu_torch.run --mode eval --ego_cfg pdm_lite \\
         --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid
+    python -m rift_tpu_torch.run --mode eval --routes routes.xml \\
+        --ego_cfg plant --cbv_recog attention
 
 The defaults are the JAX package's: the `pdm_lite` ego, Pluto on legacy
 per-CBV tokens (the override `canonical_tokens=true` picks the
 frame-invariant ones), and in eval 2 walkers and 2 static obstacles per
 scenario (`--num_walkers`, `--num_statics`; 0 in train_cbv).
 
+A Bench2Drive route file (`--routes`, `--routes_subset`) runs its routes
+in batches of `--num_scenario` through the Eval/TrainDataLoader, each
+batch on a junction town built from its routes (map/from_route.py, with
+`--stop_ratio` of the junctions all-way stops), or with `--shared_town`
+on one town of all the run's routes built up front. The last, partial
+batch is padded with its last route; only the real routes become records,
+each with its route id and weather. The `plant` ego (PlanT_medium,
+`--ego_weights`) and attention recognition (`--cbv_recog attention`, a
+PlanT scorer of dim 128, 4 layers, 4 heads, `--recog_weights`) take
+weights in the JAX package's npz format; without them they start from
+seeded weights.
+
 Ticks run in chunks of FUSED_CHUNK through rollout.rollout_chunk, with
 the ego's waypoints computed every tick inside the chunk (FUSED_EGO_KIND).
 Everything runs on CUDA unless `--device cpu`. Not ported yet
-(ROADMAP.md): the modes train_ego and collect_data, route files and the
-shared town, rendering, the per-tick host loop, attention recognition,
-ego weights, run tracking, and the egos `expert_disturb`, `plant` and the
-E2E stacks (asking for one raises, naming the ported egos).
+(ROADMAP.md): the modes train_ego and collect_data, rendering, the
+per-tick host loop, run tracking, `--repetitions` (parsed, and read by
+neither CLI), and the egos `expert_disturb` and the E2E stacks (asking
+for one raises, naming the ported egos).
 """
 
 from __future__ import annotations
@@ -32,10 +46,14 @@ import warnings
 import numpy as np
 import torch
 
-from .map import make_grid_town, make_straight_town
+from .map import make_grid_town, make_straight_town, route_waypoints
+from .map.from_route import map_from_routes, shared_map_from_routes
+from .models.plant import PlanTModel, init_plant_weights
+from .models.plant.train import load_plant_weights
 from .policies import CBV_POLICY_LIST, EGO_POLICY_LIST
 from .rollout import rollout_chunk
 from .scenario import TrafficEnv
+from .scenario.routes import EvalDataLoader, TrainDataLoader, parse_routes_file
 from .scenario.statistics import StatisticsManager
 from .utils.checkpoint import CheckpointManager
 from .utils.config import apply_overrides, load_config
@@ -43,18 +61,26 @@ from .utils.device import resolve_device
 from .utils.logger import Logger
 
 FUSED_CHUNK = 20  # ticks per rollout_chunk call
+PAD_ROUTE_LANES = 256  # lane padding of the per-batch route towns
 # egos whose waypoints rollout_chunk computes in its tick loop
 FUSED_EGO_KIND = {
     "pdm_lite": "pdm",
     "expert": "expert",  # pdm + privileged lane changes
     "behavior": "rule",
+    "plant": "plant",
 }
+# the attention recognizer's PlanT scorer
+RECOG_DIMS = {"dim": 128, "num_layers": 4, "num_heads": 4}
 
 
 def build_map(args, device):
+    """(tmap, None) for a synthetic town, or (None, route configs) for a
+    route file, whose towns are built per batch."""
+    if args.routes:
+        return None, parse_routes_file(args.routes, args.routes_subset)
     if args.town == "grid":
-        return make_grid_town(blocks=args.blocks, num_lanes=2, device=device)
-    return make_straight_town(length=600.0, num_lanes=2, device=device)
+        return make_grid_town(blocks=args.blocks, num_lanes=2, device=device), None
+    return make_straight_town(length=600.0, num_lanes=2, device=device), None
 
 
 def run_episode_fused(env, ego, cbv, state, crit, spec, max_ticks, train=False,
@@ -66,6 +92,7 @@ def run_episode_fused(env, ego, cbv, state, crit, spec, max_ticks, train=False,
     buffer-full event, and later chunks roll out with the updated weights.
     Returns (state, crit)."""
     ego_kind = FUSED_EGO_KIND[ego.name]
+    ego_model = ego.init() if ego_kind == "plant" else None  # made at first use
     with_policy = hasattr(cbv, "model")  # the Pluto family
     train_extras = train and with_policy and cbv.trainable
     n_chunks = max((max_ticks + chunk - 1) // chunk, 1)
@@ -76,7 +103,8 @@ def run_episode_fused(env, ego, cbv, state, crit, spec, max_ticks, train=False,
             with_policy=with_policy, ego=ego_kind,
             canonical=with_policy and cbv.canonical,
             map_tok=cbv.map_tokens() if with_policy else None,
-            execute_teacher=with_policy and cbv.execute_teacher, tick=env.advance(chunk),
+            execute_teacher=with_policy and cbv.execute_teacher, ego_model=ego_model,
+            recog_model=env.recog_model, tick=env.advance(chunk),
         )
         if train_extras and extras is not None:
             cbv.store_chunk(extras)
@@ -126,6 +154,25 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--town", default="grid", choices=["grid", "straight"])
     p.add_argument("--blocks", type=int, default=2)
+    p.add_argument("--routes", default="",
+                   help="a Bench2Drive route XML: its routes run in batches of "
+                        "--num_scenario, each batch on a junction town built "
+                        "from its routes")
+    p.add_argument("--routes_subset", default="",
+                   help="route ids of the file to run, e.g. '1,3-5'")
+    p.add_argument("--repetitions", type=int, default=1)
+    p.add_argument("--stop_ratio", type=float, default=0.25,
+                   help="fraction of route-map junctions converted to "
+                        "all-way-stop (stop-sign criteria, penalty 0.8)")
+    p.add_argument("--shared_town", action="store_true",
+                   help="compile ALL of the run's routes into ONE "
+                        "persistent TensorMap up front (routes within "
+                        "CROSS_EPS keep true relative town geometry; "
+                        "transversal crossings become shared signalised "
+                        "junctions) instead of rebuilding a per-batch "
+                        "corridor map every episode — the reference's "
+                        "one-CarlaMap-per-town contract "
+                        "(nuplan_map_utils.py:46-66)")
     p.add_argument("--out_dir", default="log")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--num_walkers", type=int, default=-1,
@@ -138,6 +185,18 @@ def parse_args(argv=None):
     p.add_argument("--lights", default="green", choices=["green", "cycle"],
                    help="'green' freezes every light green (the reference's "
                         "protocol); 'cycle' runs the light phases")
+    p.add_argument("--cbv_recog", default="rule", choices=["rule", "attention"],
+                   help="CBV recognition (CBV_RECOGNITION_LIST equivalent): "
+                        "rule interaction matching or the PlanT attention "
+                        "scorer (attn_cbv.py:20-30)")
+    p.add_argument("--recog_weights", default="",
+                   help="npz of trained PlanT scorer params "
+                        "(models/plant/train.py) for --cbv_recog attention")
+    p.add_argument("--ego_weights", default="",
+                   help="npz of trained ego params (PlanT, in the JAX "
+                        "package's npz format) loaded into the ego before the "
+                        "run — the reference's team_code checkpoint load "
+                        "(plant_agent.py:29)")
     p.add_argument("--pretrain", default="",
                    help="npz of pretrained Pluto params (either package's "
                         "save_params_npz) loaded into the Pluto-family CBV "
@@ -164,17 +223,66 @@ def main(argv=None):
     cbv_cfg.setdefault("seed", args.seed)
     ego_cls = EGO_POLICY_LIST[ego_cfg.get("policy", args.ego_cfg)]
     cbv_cls = CBV_POLICY_LIST[cbv_cfg.get("policy", args.cbv_cfg)]
+    S = args.num_scenario
 
-    tmap = build_map(args, device)
-    if args.lights == "green":  # light group -1: unsignalised, always green
-        tmap = tmap.replace(light_group=torch.full_like(tmap.light_group, -1))
+    def apply_lights(tm):  # light group -1: unsignalised, always green
+        if args.lights == "green":
+            tm = tm.replace(light_group=torch.full_like(tm.light_group, -1))
+        return tm
+
+    tmap, route_configs = build_map(args, device)
+    loader = shared_paths = None
+    route_pad = PAD_ROUTE_LANES  # grows if a batch needs more lanes
+
+    def route_town(cfgs):
+        """map_from_routes of a batch of route configs -> (tmap, lane_paths),
+        padded to `route_pad` lanes."""
+        return map_from_routes([c.keypoints for c in cfgs], num_lanes=2,
+                               pad_lanes_to=route_pad, stop_ratio=args.stop_ratio,
+                               device=device)
+
+    if route_configs is not None:
+        if args.mode == "eval":
+            loader = EvalDataLoader(route_configs, S)
+        else:
+            loader = TrainDataLoader(route_configs, S, seed=args.seed)
+        if args.shared_town:
+            tmap, shared_paths = shared_map_from_routes(
+                [c.keypoints for c in route_configs], num_lanes=2,
+                stop_ratio=args.stop_ratio, device=device)
+            cfg_route_idx = {id(c): i for i, c in enumerate(route_configs)}
+        else:
+            tmap, _ = route_town(route_configs[:S])
+            # map_from_routes grows the pad for a junction-heavy batch; it
+            # is carried forward, so the episode maps keep one shape
+            route_pad = max(route_pad, tmap.num_lanes)
+    tmap = apply_lights(tmap)
     # eval runs with the full criteria surface: walkers and statics on
     auto = lambda n: n if n >= 0 else (2 if args.mode == "eval" else 0)
-    env = TrafficEnv(tmap, num_scenarios=args.num_scenario, num_agents=args.num_agents,
+    env = TrafficEnv(tmap, num_scenarios=S, num_agents=args.num_agents,
                      max_cbvs=max_cbvs, seed=args.seed, num_walkers=auto(args.num_walkers),
                      num_statics=auto(args.num_statics), device=device)
     ego = ego_cls(tmap, ego_cfg)
     cbv = cbv_cls(tmap, cbv_cfg)
+    if args.ego_weights:
+        if not hasattr(ego, "load"):
+            raise ValueError(f"the {ego.name} ego takes no weights")
+        ego.load(args.ego_weights)
+        print(f"loaded ego weights {args.ego_weights}")
+    if args.cbv_recog == "attention":
+        recog = PlanTModel(**RECOG_DIMS)
+        if args.recog_weights:
+            load_plant_weights(recog, args.recog_weights)
+        else:
+            warnings.warn(
+                "--cbv_recog attention without --recog_weights: scoring with a "
+                "randomly-initialised PlanT", stacklevel=1,
+            )
+            init_plant_weights(recog, torch.Generator().manual_seed(args.seed))
+            # the JAX CLI resets the env once here for its init's token
+            # shapes; so does the port, so that a seed spawns the same scenes
+            env.reset()
+        env.set_recognition(recog.to(device).eval().requires_grad_(False))
     if args.pretrain and hasattr(cbv, "load_pretrain"):
         cbv.load_pretrain(args.pretrain)
         print(f"loaded pretrain {args.pretrain}")
@@ -190,15 +298,45 @@ def main(argv=None):
     start_ep = 0
     if args.resume:
         if args.mode == "eval":
-            start_ep = stats.resume_index // args.num_scenario
+            start_ep = stats.resume_index // S
+            if loader is not None:
+                loader.configs = loader.configs[stats.resume_index:]
         elif hasattr(cbv, "load"):
             start_ep = cbv.load(ckpt) or 0
+
+    def reset_env():
+        """A new episode: (state, crit, spec, the batch's real route configs
+        or None). On a route file each scenario drives its own route: on a
+        town built for the sampled batch (padded to `route_pad` lanes, the
+        lights applied), or on lane paths of the shared town; the final
+        partial batch is padded by repeating its last route, and the
+        duplicates are no records."""
+        nonlocal route_pad
+        batch = loader.sampler() if loader is not None else None
+        if not batch:
+            return (*env.reset(), None)
+        real = list(batch)
+        batch = (batch + [batch[-1]] * S)[:S]
+        if shared_paths is not None:
+            # the shared town never changes: an episode picks lane paths
+            lane_paths = [shared_paths[cfg_route_idx[id(c)]] for c in batch]
+        else:
+            new_tmap, lane_paths = route_town(batch)
+            route_pad = max(route_pad, new_tmap.num_lanes)
+            env.tmap = apply_lights(new_tmap)
+            for pol in (ego, cbv):
+                pol.tmap = env.tmap
+        routes = [route_waypoints(env.tmap, p) for p in lane_paths]
+        state, crit, spec = env.reset(routes=routes, lane_paths=lane_paths)
+        # weather -> sensor visibility
+        vis = torch.tensor([c.weather.visibility() for c in batch], dtype=torch.float32)
+        return state, crit, spec.replace(visibility=vis.to(device)), real
 
     train = args.mode == "train_cbv"
     trainable = train and hasattr(cbv, "buffer_full")
     empty_streak = 0
     for ep in range(start_ep, args.num_episodes):
-        state, crit, spec = env.reset()
+        state, crit, spec, batch_cfgs = reset_env()
         pre_size = _buf_size(cbv)
         fit_losses: list = []
         fit_hook = (lambda: fit_losses.extend(cbv.train_round())) if trainable else None
@@ -215,9 +353,16 @@ def main(argv=None):
             print(f"episode {ep}: fine-tune losses {fit_losses[:4]}... "
                   f"({len(fit_losses)} this episode, {cbv.train_rounds} rounds in all)")
             cbv.save(ckpt, ep)
-        stats.register_episode(crit, state, spec)
+        if batch_cfgs is not None:
+            stats.register_episode(crit, state, spec, route_ids=[c.name for c in batch_cfgs],
+                                   num_valid=len(batch_cfgs),
+                                   weathers=[c.weather for c in batch_cfgs])
+            n_new = len(batch_cfgs)
+        else:
+            stats.register_episode(crit, state, spec)
+            n_new = S
         logger.write_live_results(stats.live_results_text())
-        ds = float(np.mean([r.driving_score for r in stats.records[-args.num_scenario:]]))
+        ds = float(np.mean([r.driving_score for r in stats.records[-n_new:]]))
         logger.log_metrics(ep, driving_score=ds,
                            **({"loss": float(fit_losses[-1])} if fit_losses else {}))
         print(f"episode {ep}: DS={ds:.1f}")

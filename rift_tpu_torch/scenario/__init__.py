@@ -13,7 +13,7 @@ from .env import (
     spawn_agents,
     wake_all_bvs,
 )
-from .recognition import cbv_slot_assignment, recognize_cbvs
+from .recognition import attn_recognize_cbvs, cbv_slot_assignment, recognize_cbvs
 
 __all__ = [
     "CriteriaState",
@@ -27,6 +27,7 @@ __all__ = [
     "sample_route",
     "spawn_agents",
     "wake_all_bvs",
+    "attn_recognize_cbvs",
     "cbv_slot_assignment",
     "recognize_cbvs",
 ]

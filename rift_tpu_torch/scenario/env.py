@@ -6,7 +6,7 @@ Reset is host-side numpy, as in the JAX package, and consumes the
 scenes from the same seed. The result moves to the device in one `.to()`.
 `env_step` advances every scenario one tick on the device: lazy BV
 activation, controls, the world tick, criteria, CBV churn and, on its
-cadence, rule recognition.
+cadence, recognition (the rule, or a PlanT scorer's attention).
 """
 
 from __future__ import annotations
@@ -40,7 +40,12 @@ from ..sim.world import step as world_step
 from ..utils.device import resolve_device
 from ..utils.tensors import to_numpy
 from .criteria import CriteriaState, init_criteria, update_criteria
-from .recognition import RECOG_INTERVAL, RECOG_WARMUP_TICKS, recognize_cbvs
+from .recognition import (
+    RECOG_INTERVAL,
+    RECOG_WARMUP_TICKS,
+    attn_recognize_cbvs,
+    recognize_cbvs,
+)
 
 ROUTE_PAD = 1024  # max route waypoints (1 m spacing -> 1 km routes)
 RIDS_PAD = 64
@@ -319,14 +324,16 @@ def wake_all_bvs(state):
 
 def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: CriteriaState,
              cbv_traj=None, cbv_traj_mask=None, ego_traj=None, max_cbvs: int = 3,
-             dt: float = 0.1, *, tick: int):
+             dt: float = 0.1, recog_model=None, *, tick: int):
     """One environment tick for every scenario -> (state, crit).
 
     The ego follows `ego_traj` [S, T, 2] local waypoints when given (the
     PDM-Lite and expert egos), else the rule ego's; CBVs follow `cbv_traj`
     [S, A, T, 2] local waypoints where `cbv_traj_mask` [S, A] holds;
     everyone else runs the IDM autopilot. (The JAX package's raw-control
-    agents come with the rest of the ego zoo.) `tick` is the state's tick
+    agents come with the rest of the ego zoo.) With `recog_model` (a
+    PlanTModel) recognition ranks the rule's candidates by its attention
+    (attn_recognize_cbvs), else it is the rule's. `tick` is the state's tick
     before the step, the
     same in every scenario (ticks advance in lockstep); the caller keeps it
     on the host, so the recognition cadence costs no device read."""
@@ -381,7 +388,14 @@ def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: Criteri
     # ticks), skipped whole on the other ticks
     new_tick = tick + 1
     if new_tick > RECOG_WARMUP_TICKS and new_tick % RECOG_INTERVAL == 0:
-        new_is_cbv, goal, gvalid, _, promote = recognize_cbvs(tmap, spec, state, max_cbvs)
+        if recog_model is None:
+            recog = recognize_cbvs(tmap, spec, state, max_cbvs)
+        else:
+            from ..models.plant.train import plant_attn_scores
+
+            scores = plant_attn_scores(recog_model, spec, state)
+            recog = attn_recognize_cbvs(tmap, spec, state, lambda _s: scores, max_cbvs)
+        new_is_cbv, goal, gvalid, _, promote = recog
         gate = ~crit.done[:, None]
         promote = promote & gate
         state = state.replace(
@@ -425,6 +439,12 @@ class TrafficEnv:
         self.num_statics = num_statics
         self.rng = np.random.default_rng(seed)
         self.tick = 0  # the scenes' tick, kept on the host (lockstep)
+        self.recog_model = None  # a PlanT scorer: attention recognition
+
+    def set_recognition(self, model=None):
+        """Attention CBV recognition by a PlanT scorer (a PlanTModel on the
+        env's device) from the next step on; no model reverts to the rule."""
+        self.recog_model = model
 
     def reset(self, routes=None, lane_paths=None):
         """New scenes: returns (state, crit, spec) on the env's device."""
@@ -457,7 +477,7 @@ class TrafficEnv:
         return env_step(
             self.tmap, self.spec, state, crit, cbv_traj=cbv_traj,
             cbv_traj_mask=cbv_traj_mask, ego_traj=ego_traj, max_cbvs=self.max_cbvs,
-            dt=self.dt, tick=self.advance(1),
+            dt=self.dt, recog_model=self.recog_model, tick=self.advance(1),
         )
 
     def all_done(self, crit) -> bool:

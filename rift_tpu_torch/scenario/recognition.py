@@ -1,6 +1,6 @@
 """CBV recognition: promote background vehicles to adversaries (port of
-rift_tpu/scenario/recognition.py: the rule path and `cbv_slot_assignment`;
-the PlanT attention recognizer comes with the ego zoo).
+rift_tpu/scenario/recognition.py: the rule path, the PlanT attention
+recognizer `attn_recognize_cbvs` and `cbv_slot_assignment`).
 
 Candidates are alive background vehicles 10-60 m from the ego, on-road,
 whose driving distance to some upcoming ego-route waypoint is comparable to
@@ -119,6 +119,35 @@ def _chain_goal(tmap, spec, state, ahead: float) -> torch.Tensor:
     i0 = torch.clamp(fi.to(torch.int32), 0, P - 2).long()
     w = (fi - i0)[..., None]
     return tmap.centerline[goal_lane, i0] * (1 - w) + tmap.centerline[goal_lane, i0 + 1] * w
+
+
+def attn_recognize_cbvs(tmap: TensorMap, spec: ScenarioSpec, state: SimState,
+                        attn_scores_fn, max_cbvs: int = 3):
+    """Attention recognition: the rule-passing candidates ranked by a
+    PlanT scorer's attention (`attn_scores_fn(state) -> [S, A]`, higher is
+    more relevant; models/plant/train.py:plant_attn_scores), the top ones
+    promoted into the free CBV slots. Returns `recognize_cbvs`'s tuple.
+
+    The ranks are the JAX package's two stable argsorts; a candidate whose
+    score is -inf (no vehicle token) is never promoted, and tied scores
+    rank by slot."""
+    is_cbv, goal, goal_valid, interaction, promote_rule = recognize_cbvs(
+        tmap, spec, state, max_cbvs
+    )
+    scores = attn_scores_fn(state)
+    candidate = promote_rule | (is_cbv & ~state.is_cbv)
+    free = torch.clamp(max_cbvs - state.is_cbv.sum(-1), min=0)
+    score = torch.where(candidate, scores, -torch.inf)
+    order = torch.argsort(-score, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    promote = candidate & (rank < free[:, None]) & torch.isfinite(score)
+    return (
+        state.is_cbv | promote,
+        torch.where(promote[..., None], goal, state.goal),
+        torch.where(promote, goal_valid, state.goal_valid),
+        torch.where(promote, interaction, -1),
+        promote,
+    )
 
 
 def cbv_slot_assignment(is_cbv: torch.Tensor, max_cbvs: int) -> torch.Tensor:

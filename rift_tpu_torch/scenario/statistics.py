@@ -183,9 +183,12 @@ class StatisticsManager:
 
     def register_episode(self, crit: CriteriaState, state: SimState, spec: ScenarioSpec,
                          route_ids: list[str] | None = None, dt: float = 0.1,
-                         num_valid: int | None = None):
+                         num_valid: int | None = None, weathers: list | None = None):
         """Pull one batch of finished scenarios into records; `num_valid`
-        caps how many scenarios become records (a padded last batch)."""
+        caps how many scenarios become records (a padded last batch).
+        `weathers` (a scenario.routes.Weather per scenario) fills each
+        record's weather, its keyframes interpolated at the route's
+        final completion percentage."""
         ds, rc, penalty = (x.cpu().numpy() for x in driving_score(crit, state, spec))
         # one transfer to the host for everything read below
         c, state, spec = crit.to("cpu"), state.to("cpu"), spec.to("cpu")
@@ -201,6 +204,10 @@ class StatisticsManager:
                 route_id=route_ids[s] if route_ids else f"route_{len(self.records)}",
                 index=len(self.records),
                 status=_status(c, s),
+                weather=(
+                    weathers[s].at(float(rc[s]))
+                    if weathers is not None and s < len(weathers) else {}
+                ),
                 driving_score=float(ds[s]),
                 route_completion=float(rc[s]),
                 infraction_penalty=float(penalty[s]),

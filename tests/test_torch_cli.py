@@ -8,27 +8,47 @@ of one block that fits once, checkpoints and saves a pretrain; an `eval`
 episode on the straight town from that pretrain; and `eval --resume`,
 which reads the statistics file back and runs only the missing episode.
 Then an `eval` with the JAX CLI's defaults (no ego, no override): the
-pdm_lite ego, legacy tokens, 2 walkers and 2 statics.
+pdm_lite ego, legacy tokens, 2 walkers and 2 statics. Then route files
+(torch_parity.write_route_file): an `eval` of four routes in batches of 3
+with the PlanT_medium ego and attention recognition (records carry the
+route ids and weather; the padded last batch makes one record); the
+shared town; and the `--ego_weights` and `--recog_weights` npz files
+saved by the JAX package's `save_params_npz`, with which the port's ego
+waypoints and recognizer scores at tick 0 equal the JAX models' (1e-5).
 """
 
+import dataclasses
 import glob
 import json
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import yaml
 
+from rift_tpu.models.plant import PlanTModel as JaxPlanT
+from rift_tpu.models.plant import plant_ego_waypoints as jax_plant_waypoints
+from rift_tpu.models.plant.train import plant_attn_scores as jax_attn_scores
+from rift_tpu.sim.pid import PIDState as JaxPID
+from rift_tpu.sim.pid import TrackerState as JaxTracker
+from rift_tpu.sim.state import ScenarioSpec as JaxSpec
+from rift_tpu.sim.state import SimState as JaxState
 from rift_tpu.utils import config as jax_config
+from rift_tpu.utils.params_io import save_params_npz as jax_save_params
 from rift_tpu_torch import run
+from rift_tpu_torch.models.plant import PlanTModel, plant_ego_waypoints
+from rift_tpu_torch.models.plant.train import plant_attn_scores
 from rift_tpu_torch.rollout import rollout_chunk
+from rift_tpu_torch.scenario.routes import parse_routes_file
 from rift_tpu_torch.sim.state import CLASS_STATIC, CLASS_WALKER
 from rift_tpu_torch.utils import config
-from torch_parity import one_torch_thread
+from torch_parity import one_torch_thread, write_route_file
 
 CONFIGS = ("standard", "pluto", "rift_pluto", "grpo_pluto", "reinforce_pluto", "rs_pluto",
-           "sft_pluto", "rtr_pluto", "ppo_pluto", "pdm_lite")
+           "sft_pluto", "rtr_pluto", "ppo_pluto", "pdm_lite", "plant")
 
 
 def test_configs_and_overrides_match_jax():
@@ -115,3 +135,116 @@ def test_run_eval_with_the_defaults(tmp_path, monkeypatch):
     assert (kw["walkers"], kw["statics"]) == (2 * 2, 2 * 2)
     assert os.path.exists(os.path.join(out, "eval", "pdm_lite-rift_pluto-seed0",
                                        "simulation_results.json"))
+
+
+def _recorded_chunks(monkeypatch):
+    """run.rollout_chunk recorded: each call's map, spec, state, tick and
+    ego and recognizer models."""
+    calls = []
+
+    def recorded(model, tmap, spec, state, crit, **kw):
+        calls.append(dict(kw, tmap=tmap, spec=spec, state=state))
+        return rollout_chunk(model, tmap, spec, state, crit, **kw)
+
+    monkeypatch.setattr(run, "rollout_chunk", recorded)
+    return calls
+
+
+def test_run_routes_with_plant_ego_and_attention(tmp_path, monkeypatch):
+    """Four routes in batches of 3 (routes 3 and 4 cross, so the loader
+    puts 4 in a second batch, padded with itself): two episodes, each on a
+    route town of 256 lanes, with PlanT_medium (dim 512, 8 heads) computed
+    every tick and the PlanT scorer (dim 128, 4 layers, 4 heads; seeded,
+    with a warning) recognizing CBVs from tick 26. Four records: the route
+    ids, each route's weather at its completion, and each scenario's
+    visibility from its route's weather."""
+    xml = write_route_file(tmp_path / "routes.xml")
+    calls = _recorded_chunks(monkeypatch)
+    out = str(tmp_path / "log")
+    with pytest.warns(UserWarning, match="recog_weights"):
+        g = run.main(["--mode", "eval", "--routes", xml, "--ego_cfg", "plant",
+                      "--cbv_recog", "attention", "--device", "cpu", "--num_scenario", "3",
+                      "--num_agents", "12", "--num_episodes", "2", "--max_ticks", "40",
+                      "--out_dir", out, "encoder_depth=1", "decoder_depth=1"])
+    assert g.total_routes == 4 and len(calls) == 4
+    ego, recog = calls[0]["ego_model"], calls[0]["recog_model"]
+    assert (ego.dim, ego.num_layers, ego.layer0.Attention_0.num_heads) == (512, 8, 8)
+    assert (recog.dim, recog.num_layers, recog.layer0.Attention_0.num_heads) == (128, 4, 4)
+    assert all(c["ego"] == "plant" and c["recog_model"] is recog for c in calls)
+    assert [c["tick"] for c in calls] == [0, 20, 0, 20]
+    tmaps = [c["tmap"] for c in calls]
+    assert tmaps[0] is tmaps[1] and tmaps[1] is not tmaps[2]
+    assert all(t.num_lanes == 256 and (t.light_group == -1).all() for t in tmaps)
+    cfgs = parse_routes_file(xml)
+    vis = calls[2]["spec"].visibility.tolist()
+    assert vis == pytest.approx([cfgs[3].weather.visibility()] * 3)
+    with open(os.path.join(out, "eval", "plant-rift_pluto-seed0",
+                           "simulation_results.json")) as f:
+        records = json.load(f)["records"]
+    assert [r["route_id"] for r in records] == [c.name for c in cfgs]
+    for r in records:
+        cfg = next(c for c in cfgs if c.name == r["route_id"])
+        assert r["weather"] == pytest.approx(cfg.weather.at(r["route_completion"]))
+
+
+def test_run_shared_town(tmp_path, monkeypatch):
+    """--shared_town: one town of all four routes, built up front and kept
+    for every episode; each episode's scenarios drive their routes' lane
+    paths on it (the crossing pair through its shared junction)."""
+    xml = write_route_file(tmp_path / "routes.xml")
+    calls = _recorded_chunks(monkeypatch)
+    g = run.main(["--mode", "eval", "--routes", xml, "--shared_town", "--ego_cfg", "behavior",
+                  "--device", "cpu", "--num_scenario", "2", "--num_agents", "10",
+                  "--num_episodes", "3", "--max_ticks", "20", "--out_dir", str(tmp_path / "log"),
+                  "encoder_depth=1", "decoder_depth=1"])
+    assert g.total_routes == 4 and len(calls) == 3
+    assert calls[0]["tmap"] is calls[1]["tmap"] is calls[2]["tmap"]
+    assert calls[0]["tmap"].is_junction.any()
+
+
+def _to_jax(obj, cls):
+    """A JAX SimState or ScenarioSpec holding a port container's values."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name == "tracker":
+            pid = lambda p: JaxPID(*(jnp.asarray(x.numpy()) for x in (p.buf, p.ptr, p.count)))
+            kw[f.name] = JaxTracker(pid(v.speed), pid(v.turn))
+        else:
+            kw[f.name] = None if v is None else jnp.asarray(v.numpy())
+    return cls(**kw)
+
+
+def test_run_plant_weights_from_jax(tmp_path, monkeypatch):
+    """--ego_weights and --recog_weights saved by the JAX package: the ego
+    (a small PlanT config: dim 64, 2 layers, 2 heads) and the recognizer
+    load them strictly, and on the first chunk's scene (tick 0) the port's
+    waypoints and scores equal the JAX models' with those params."""
+    dims = {"dim": 64, "num_layers": 2, "num_heads": 2}
+    ego_cfg = tmp_path / "plant_small.json"
+    ego_cfg.write_text(json.dumps({"policy": "plant", **dims}))
+    toks = (jnp.zeros((1, 18, 7)), jnp.zeros((1, 2)), jnp.zeros((1, 1)))
+    jego, jrecog = JaxPlanT(**dims), JaxPlanT(dim=128, num_layers=4, num_heads=4)
+    ego_params = jax.jit(jego.init)(jax.random.PRNGKey(0), *toks)
+    recog_params = jax.jit(jrecog.init)(jax.random.PRNGKey(1), *toks)
+    jax_save_params(ego_params, str(tmp_path / "ego.npz"))
+    jax_save_params(recog_params, str(tmp_path / "recog.npz"))
+    calls = _recorded_chunks(monkeypatch)
+    run.main(["--mode", "eval", "--routes", write_route_file(tmp_path / "r.xml", ids=(1, 2)),
+              "--ego_cfg", str(ego_cfg), "--ego_weights", str(tmp_path / "ego.npz"),
+              "--cbv_recog", "attention", "--recog_weights", str(tmp_path / "recog.npz"),
+              "--device", "cpu", "--num_scenario", "2", "--num_agents", "10",
+              "--num_episodes", "1", "--max_ticks", "20", "--out_dir", str(tmp_path / "log"),
+              "encoder_depth=1", "decoder_depth=1"])
+    first = calls[0]
+    spec, state = first["spec"], first["state"]
+    jspec, jstate = _to_jax(spec, JaxSpec), _to_jax(state, JaxState)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            plant_ego_waypoints(first["ego_model"], spec, state).numpy(),
+            np.asarray(jax_plant_waypoints(jego, ego_params, jspec, jstate)), atol=1e-5, rtol=1e-5)
+        got = plant_attn_scores(first["recog_model"], spec, state).numpy()
+    ref = np.asarray(jax.jit(jax_attn_scores, static_argnums=0)(jrecog, recog_params, jspec,
+                                                                  jstate))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(ref))
+    np.testing.assert_allclose(got[np.isfinite(ref)], ref[np.isfinite(ref)], atol=1e-5, rtol=1e-5)

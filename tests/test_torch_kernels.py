@@ -88,14 +88,22 @@ ATTN_EDGES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ATTN_EDGES, ids=lambda c: "x".join(map(str, c)))
-def test_attention_kernel_tile_edges(cuda_device, case, dtype):
-    """Every row tail and key tail, strided slices of packed projections,
-    a fully masked row (batch row 0), in f32 (1e-5) and bf16 (2e-2)."""
+# head dims 33..64 (the kernel's second instantiation): Tk at 1 (four
+# short sequences to a warp), 16, 17 and 128 (the f32 staging above 48 KB
+# of shared memory; Tq = 130 takes a second pass of the 8 warps), PlanT's
+# 19 tokens at its ego's D = 512, H = 8 and its recognizer's D = 128, H = 4
+# (head dim 32), and D/H = 60 and 33 (element-wise staging in bf16; an odd
+# head dim stores element by element)
+ATTN_DH64_EDGES = [
+    (5, 1, 1, 128, 2, "sep"), (6, 16, 16, 256, 4, "packed"), (4, 17, 17, 512, 8, "packed"),
+    (2, 48, 128, 128, 2, "kv"), (2, 130, 128, 256, 4, "kv"), (3, 19, 19, 512, 8, "packed"),
+    (3, 19, 19, 128, 4, "packed"), (3, 20, 20, 120, 2, "sep"), (3, 17, 23, 66, 2, "sep"),
+]
+
+
+def _attention_edge(device, case, dtype):
     B, Tq, Tk, D, H, layout = case
-    q, k, v, bias, kpad = (torch.from_numpy(a).to(cuda_device)
+    q, k, v, bias, kpad = (torch.from_numpy(a).to(device)
                            for a in attn_inputs(B, Tq, Tk, D, H, seed=3))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     if layout == "packed":
@@ -109,6 +117,24 @@ def test_attention_kernel_tile_edges(cuda_device, case, dtype):
     assert torch.isfinite(got).all()
     atol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_EDGES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_kernel_tile_edges(cuda_device, case, dtype):
+    """Every row tail and key tail, strided slices of packed projections,
+    a fully masked row (batch row 0), in f32 (1e-5) and bf16 (2e-2)."""
+    _attention_edge(cuda_device, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_DH64_EDGES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_kernel_head_dim_64(cuda_device, case, dtype):
+    """Head dims up to 64 at the key tails, packed and strided q/k/v and a
+    fully masked row (batch row 0), in f32 (1e-5) and bf16 (2e-2)."""
+    _attention_edge(cuda_device, case, dtype)
 
 
 @pytest.mark.cuda
@@ -653,3 +679,33 @@ def test_launch_counts(cuda_device):
     torch.cuda.synchronize()
     end = [m.launches for m in mods] + [history.encoder_launches]
     assert [b - a for a, b in zip(done, end)] == [5, 0, 2, 1]
+
+
+@pytest.mark.cuda
+def test_plant_launch_counts(cuda_device):
+    """One PlanT_medium ego tick launches the attention kernel once per
+    layer (8, head dim 64) and one recognition score the recognizer's 4
+    (head dim 32); nothing else of the hand kernels."""
+    from rift_tpu_torch.map import make_straight_town
+    from rift_tpu_torch.models.plant import PlanTModel, plant_ego_waypoints
+    from rift_tpu_torch.models.plant.train import plant_attn_scores
+    from rift_tpu_torch.ops import attention, history, points
+    from rift_tpu_torch.scenario import TrafficEnv
+
+    tmap = make_straight_town(length=300.0, num_lanes=2, device=cuda_device)
+    state, _, spec = TrafficEnv(tmap, num_scenarios=4, num_agents=20, device=cuda_device).reset()
+    ego = PlanTModel(device=cuda_device).eval()
+    recog = PlanTModel(dim=128, num_layers=4, num_heads=4, device=cuda_device).eval()
+    mods = (attention, history, points)
+    count = lambda: [m.launches for m in mods] + [history.encoder_launches]
+    start = count()
+    wp = plant_ego_waypoints(ego, spec, state)
+    torch.cuda.synchronize()
+    mid = count()
+    scores = plant_attn_scores(recog, spec, state)
+    torch.cuda.synchronize()
+    end = count()
+    assert [b - a for a, b in zip(start, mid)] == [8, 0, 0, 0]
+    assert [b - a for a, b in zip(mid, end)] == [4, 0, 0, 0]
+    assert torch.isfinite(wp).all() and wp.shape == (4, 30, 2)
+    assert torch.isfinite(scores).any()

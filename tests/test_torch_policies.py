@@ -113,7 +113,7 @@ def test_teacher_label_and_registry():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     assert set(policies.CBV_POLICY_LIST) == {"standard", "pluto", *FINE_TUNED}
-    assert set(policies.EGO_POLICY_LIST) == {"pdm_lite", "behavior", "expert"}
+    assert set(policies.EGO_POLICY_LIST) == {"pdm_lite", "behavior", "expert", "plant"}
     with pytest.raises(KeyError, match="ROADMAP.md"):
         policies.CBV_POLICY_LIST["ppo"]
     with pytest.raises(KeyError, match="pdm_lite"):

@@ -59,7 +59,7 @@ def spec_from_jax(jspec, device="cpu") -> ScenarioSpec:
 
 def assert_fields_match(jobj, tobj, atol, rtol=0.0, prefix=""):
     """Every field of a port container (SimState, CriteriaState, nested
-    trackers) against the JAX one: integer and bool fields exactly (uint32
+    trackers, ScenarioSpec, TensorMap) against the JAX one: integer and bool fields exactly (uint32
     and int32 values as the port's int64), float fields within atol/rtol
     with NaN where the JAX value is NaN."""
     for f in dataclasses.fields(tobj):
@@ -67,6 +67,9 @@ def assert_fields_match(jobj, tobj, atol, rtol=0.0, prefix=""):
         name = prefix + f.name
         if dataclasses.is_dataclass(b):
             assert_fields_match(a, b, atol, rtol, name + ".")
+            continue
+        if b is None:  # an optional field (a spec's visibility) unset in both
+            assert a is None, name
             continue
         a, b = np.asarray(a), b.detach().cpu().numpy()
         assert a.shape == b.shape, (name, a.shape, b.shape)
@@ -137,3 +140,31 @@ def stage_inputs(seed, N, T, D, H, window):
         ws.append(a.astype(np.float32))
     rpb = [(0.5 * r.normal(size=(H, 2 * window - 1))).astype(np.float32) for _ in range(2)]
     return x, ws, rpb
+
+
+def write_route_file(path, ids=(1, 2, 3, 4)):
+    """A small route file in the Bench2Drive schema (routes of waypoints
+    with weather keyframes at 0 and 100 % of the route), in town
+    coordinates km apart: a straight route (id 1), an L with one corner
+    (id 2, a junction in the route town) and a crossing pair (ids 3 and 4,
+    within 100 m of each other, so a data loader batches them apart; a
+    shared junction in the shared town). `ids` picks the routes written."""
+    straight = [(1000.0 + 50.0 * i, 200.0) for i in range(7)]
+    ell = [(0.0, 0.0), (150.0, 0.0), (150.0, 150.0)]
+    cross_a = [(5000.0, 5000.0 + 40.0 * i) for i in range(8)]
+    cross_b = [(4860.0 + 40.0 * i, 5140.0) for i in range(8)]
+    routes = {1: (straight, 0, 40), 2: (ell, 10, 0), 3: (cross_a, 0, 0), 4: (cross_b, 60, 80)}
+    body = []
+    for rid in ids:
+        pts, fog, rain = routes[rid]
+        wps = "".join(f'<position x="{x}" y="{y}" z="0.0"/>' for x, y in pts)
+        body.append(
+            f'<route id="{rid}" town="Town12"><weathers>'
+            f'<weather route_percentage="0" cloudiness="10.0" precipitation="0.0" '
+            f'fog_density="{fog}"/>'
+            f'<weather route_percentage="100" cloudiness="60.0" precipitation="{rain}" '
+            f'fog_density="{fog}"/>'
+            f"</weathers><waypoints>{wps}</waypoints></route>")
+    with open(path, "w") as f:
+        f.write("<routes>\n" + "\n".join(body) + "\n</routes>\n")
+    return str(path)

@@ -15,7 +15,11 @@ forward in bf16 (chip_smoke.py's `attention_shapes` and
 `attention_inputs`, read from this tree for both turns) at the act's 192
 CBVs, a fit step's batch 256, and 12 and 48 CBVs (4 and 16 scenarios of
 3 CBVs), launched from Python (`ms`) and replayed from a CUDA graph
-(`device_ms`, also per launch shape); the PointNet at
+(`device_ms`, also per launch shape), with a digest of the outputs of the
+17 in bf16 and in f32, and the act's 17 timed in f32 too; PlanT's
+launches in f32 at 64 scenarios (one ego tick's 8 at head dim 64, which
+a tree whose kernel stops at 32 refuses, and one recognition tick's 4);
+the PointNet at
 the act's reference-line launch (N=768 rows of P=120 points, C=6, a random
 valid prefix per row) and at the fit's map-row launch (N=16384, P=20, C=10,
 every point valid); the whole encoder at the act's N=1536 and the fit's
@@ -57,6 +61,11 @@ from pathlib import Path
 DIM = 128
 ATTENTION_BATCH = {"attention_act": 192, "attention_fit": 256, "attention_12": 12,
                    "attention_48": 48}
+# PlanT's launches at S = 64 scenarios, f32: one ego tick's 8 (head dim 64;
+# a tree whose kernel stops at head dim 32 records its refusal) and one
+# recognition tick's 4
+PLANT_ATTENTION = {"attention_plant_ego": ("plant_ego", 8),
+                   "attention_plant_recog": ("plant_recog", 4)}
 POINT_SHAPES = {"points_act": (768, 120, 6, True), "points_fit": (16384, 20, 10, False)}
 ENCODER_SHAPES = {"encoder_act": 1536, "encoder_fit": 8192}
 STAGE_SHAPES = {"stage_act": 1536, "stage_fit": 8192}
@@ -78,12 +87,30 @@ smoke = _chip_smoke()
 cuda_ms, graph_ms = smoke.cuda_ms, smoke.graph_ms
 
 
-def attention_calls(torch, seed, B):
-    """The 17 attention launches of one planner forward at batch B, bf16:
-    (q, k, v, bias, kpad, heads) each."""
+def attention_calls(torch, seed, B, dtype=None):
+    """The 17 attention launches of one planner forward at batch B, bf16
+    unless `dtype` says otherwise: (q, k, v, bias, kpad, heads) each."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return [smoke.attention_inputs(torch, gen, s, torch.bfloat16) + (s[4],)
+    return [smoke.attention_inputs(torch, gen, s, dtype or torch.bfloat16) + (s[4],)
             for s in smoke.attention_shapes(B)]
+
+
+def attention_case(torch, attention, calls, digest_calls=()):
+    """ms (launched from Python), device_ms (replayed from a CUDA graph,
+    also per launch shape), the largest error against the plain version,
+    and a digest of the outputs of `calls` and `digest_calls`."""
+    err = max((attention.fused_attention(*c).float()
+               - attention.fused_attention_ref(*c).float()).abs().max().item()
+              for c in calls)
+    kernel = lambda: [attention.fused_attention(*c) for c in calls]
+    by_launch = {}
+    for c in calls:
+        key = "x".join(map(str, (c[0].shape[0], c[0].shape[1], c[1].shape[1])))
+        if key not in by_launch:
+            by_launch[key] = graph_ms(torch, lambda: attention.fused_attention(*c))
+    return {"ms": cuda_ms(torch, kernel), "device_ms": graph_ms(torch, kernel),
+            "device_ms_by_launch": by_launch, "max_abs_err": err,
+            "digest": digest(*(attention.fused_attention(*c) for c in (*calls, *digest_calls)))}
 
 
 def points_inputs(torch, seed, N, P, C, prefix):
@@ -153,9 +180,12 @@ def stage_chunk_sweep(torch, history, calls) -> dict:
 
 
 def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes (any dtype)."""
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -233,18 +263,20 @@ def turn() -> dict:
 
     out = {"package": str(Path(rift_tpu_torch.__file__).resolve().parent.parent)}
     for name, B in ATTENTION_BATCH.items():
-        calls = attention_calls(torch, 0, B)
-        err = max((attention.fused_attention(*c).float()
-                   - attention.fused_attention_ref(*c).float()).abs().max().item()
-                  for c in calls)
-        kernel = lambda: [attention.fused_attention(*c) for c in calls]
-        by_launch = {}
-        for c in calls:
-            key = "x".join(map(str, (c[0].shape[0], c[0].shape[1], c[1].shape[1])))
-            if key not in by_launch:
-                by_launch[key] = graph_ms(torch, lambda: attention.fused_attention(*c))
-        out[name] = {"ms": cuda_ms(torch, kernel), "device_ms": graph_ms(torch, kernel),
-                     "device_ms_by_launch": by_launch, "max_abs_err": err}
+        # timed in bf16, as the planner runs; the digest also covers f32
+        out[name] = attention_case(torch, attention, attention_calls(torch, 0, B),
+                                   attention_calls(torch, 0, B, torch.float32))
+    out["attention_act_f32"] = attention_case(torch, attention,
+                                              attention_calls(torch, 0, 192, torch.float32))
+    for name, (shape, layers) in PLANT_ATTENTION.items():
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        s = smoke.plant_attention_shapes(64)[shape]
+        calls = [smoke.attention_inputs(torch, gen, s, torch.float32) + (s[4],)
+                 for _ in range(layers)]
+        try:
+            out[name] = attention_case(torch, attention, calls)
+        except ValueError as e:  # beyond the kernel's head dim in that tree
+            out[name] = {"ms": None, "refused": str(e)}
     for name, (N, P, C, prefix) in POINT_SHAPES.items():
         x, mask, w = points_inputs(torch, 1, N, P, C, prefix)
         got = points.points_encoder(x, mask, w, DIM)
@@ -309,16 +341,19 @@ def main() -> int:
         print(json.dumps(r))
         turns.append(r)
     summary = {"card": card}
-    for name in (*ATTENTION_BATCH, *POINT_SHAPES, *ENCODER_SHAPES, *STAGE_SHAPES, *EVALUATOR,
-                 "eval_act_step", "train_act_step", "fit_step"):
+    for name in (*ATTENTION_BATCH, "attention_act_f32", *PLANT_ATTENTION, *POINT_SHAPES,
+                 *ENCODER_SHAPES, *STAGE_SHAPES, *EVALUATOR, "eval_act_step", "train_act_step",
+                 "fit_step"):
         summary[name] = {"ms_by_turn": [(t["label"], t[name]["ms"]) for t in turns]}
-        for key in ("device_ms", "device_ms_by_launch", "digest", "ms_by_level_and_chunk"):
+        for key in ("device_ms", "device_ms_by_launch", "digest", "ms_by_level_and_chunk",
+                    "refused"):
             if any(key in t[name] for t in turns):
                 summary[name][f"{key}_by_turn"] = [(t["label"], t[name][key])
                                                    for t in turns if key in t[name]]
-        if "max_abs_err" in turns[0][name]:
-            summary[name]["max_abs_err"] = max(t[name]["max_abs_err"] for t in turns)
-        if "digest" in turns[0][name]:
+        if any("max_abs_err" in t[name] for t in turns):
+            summary[name]["max_abs_err"] = max(t[name]["max_abs_err"] for t in turns
+                                               if "max_abs_err" in t[name])
+        if all("digest" in t[name] for t in turns):
             # across all four turns, and within each tree's two
             summary[name]["same_bits"] = len({t[name]["digest"] for t in turns}) == 1
             summary[name]["same_bits_each_tree"] = all(
