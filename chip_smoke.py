@@ -7,7 +7,8 @@ Runner.train_cbv at the bench configuration), the fine-tuning zoo and the
 CLI, on canonical tokens; then the same paths with the JAX CLI's
 defaults: legacy (per-CBV) tokens, the PDM-Lite ego, walkers and statics;
 then route files on route towns with the PlanT_medium ego and attention
-recognition.
+recognition; then the per-tick loop with raw controls, classic PPO and
+train_ego.
 
     python3 chip_smoke.py
 
@@ -120,6 +121,19 @@ Phases (any failure raises and exits non-zero):
      batches, the last padded (exact launch counts; records with route
      ids and weather), `--shared_town` once, and train_cbv on route towns
      until a fit round (the re-tracking and reference-line kernels).
+ 16. the per-tick loop (`run.run_episode`), raw controls, classic PPO and
+     train_ego at the bench configuration on legacy tokens: 40 ticks of
+     the per-tick loop and of the fused one from one reset (pdm_lite,
+     rift_pluto in eval, 2 walkers and 2 statics), every SimState and
+     criteria field bit-equal (bounded at phase 9's share of agents
+     apart only if the fused loop differs from itself), exact launch
+     counts, both loops' env-steps/s; then `run.main`: train_cbv
+     `--no_fused` to one fit round (a re-tracking and a reference-line
+     launch every tick, exact counts, pi_head moved and nothing else),
+     train_ego with the `ppo` ego (the rift_pluto CBVs' train act every
+     tick; finite losses, ego weights moved), train_cbv with the classic
+     `ppo` and `frea` CBVs (finite losses, weights moved, no hand-kernel
+     launch, frea's warning), and eval with the `expert_disturb` ego.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -128,6 +142,7 @@ without a CUDA device or without the rift_tpu_torch package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -165,6 +180,7 @@ PLANT_EGO = {"dim": 512, "num_layers": 8, "num_heads": 8}
 PLANT_RECOG = {"dim": 128, "num_layers": 4, "num_heads": 4}
 PLANT_TOKENS = 16 + 2 + 1
 ROUTE_GROUPS = 5  # copies of the route file's four routes, 3 km apart
+PER_TICK_BUFFER = 1024  # phase 16's per-tick train_cbv: filled within 80 ticks
 
 
 def attention_shapes(B=S * C):
@@ -1759,6 +1775,196 @@ def route_cli(torch, counters, route_file):
     return out, launches
 
 
+@contextlib.contextmanager
+def recording(registry, key, snapshot):
+    """registry[key] (a policy zoo of run.py) replaced by a subclass that
+    records each instance it makes with `snapshot(instance)` of its
+    weights as built, and every loss of its `train_round` (`.losses`)."""
+    base, made = registry[key], []
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.losses = []
+            made.append((self, snapshot(self)))
+
+        def train_round(self, *a, **kw):
+            losses = super().train_round(*a, **kw)
+            self.losses.extend(losses)
+            return losses
+
+    registry[key] = Recorded
+    try:
+        yield made
+    finally:
+        registry[key] = base
+
+
+def fields_apart(torch, a, b, prefix=""):
+    """Names of the fields of two state dataclasses (nested ones too) that
+    are not bit-equal (NaN equal to NaN)."""
+    import dataclasses
+
+    names = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            names += fields_apart(torch, x, y, f"{prefix}{f.name}.")
+        elif x is not None and not (x.shape == y.shape and bool(
+                ((x == y) | ((x != x) & (y != y))).all())):
+            names.append(prefix + f.name)
+    return names
+
+
+def per_tick_path(torch, tmap, counters):
+    """Phase 16: the per-tick loop (run.run_episode), raw controls, classic
+    PPO and train_ego at the bench configuration, legacy tokens and the JAX
+    CLI's defaults: (a) 40 ticks of the per-tick loop and 40 of the fused
+    one from one reset (pdm_lite, rift_pluto in eval, 2 walkers and 2
+    statics), every SimState and criteria field bit-equal, exact launch
+    counts, both loops' env-steps/s (best of two, in turns); (b) `run.main --mode train_cbv
+    --no_fused` to one fit round (a re-tracking and a reference-line launch
+    every tick, finite losses, pi_head moved and nothing else); (c) `--mode
+    train_ego --ego_cfg ppo` with the rift_pluto CBVs on their train act
+    every tick (finite ego losses, ego weights moved); (d) `--mode
+    train_cbv --cbv_cfg ppo`, then `frea` (its warning): finite losses,
+    weights moved, no hand-kernel launch; (e) `--mode eval --ego_cfg
+    expert_disturb`, per tick, with its driving score."""
+    import io
+    import os
+    import shutil
+    import warnings
+
+    from rift_tpu_torch import policies, run
+    from rift_tpu_torch.scenario import TrafficEnv
+    from rift_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    env = TrafficEnv(tmap, num_scenarios=S, num_agents=A, max_cbvs=2, num_walkers=2,
+                     num_statics=2)
+    ego = policies.PDMLiteEgo(tmap)
+    cbv = policies.RIFTPlutoPolicy(tmap, {**load_config("rift_pluto"), "max_cbvs": 2})
+    state0, crit0, spec = env.reset()
+
+    def loop(fn):
+        env.tick = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn(env, ego, cbv, state0, crit0, spec, CHUNK)
+        torch.cuda.synchronize()
+        return res, CHUNK * S / (time.perf_counter() - t1)
+
+    loop(run.run_episode_fused)  # warm-up
+    zero_launches(counters)
+    (st, cr), rate = loop(run.run_episode)
+    launches["per_tick_eval"] = read_launches(counters)
+    check_counts("per-tick eval", launches["per_tick_eval"], act_launches(CHUNK, legacy=True))
+    (fst, fcr), fused_rate = loop(run.run_episode_fused)
+    # env-steps/s: the best of two runs of each loop, in turns
+    out["per_tick_env_steps_per_s"] = max(rate, loop(run.run_episode)[1])
+    out["fused_env_steps_per_s"] = max(fused_rate, loop(run.run_episode_fused)[1])
+    apart = fields_apart(torch, st, fst) + fields_apart(torch, cr, fcr, "crit.")
+    out["per_tick_vs_fused_fields_apart"] = apart
+    out["cbvs_at_the_end"] = int(st.is_cbv.sum())
+    if not out["cbvs_at_the_end"]:
+        raise AssertionError("per-tick eval: no CBV by tick 40")
+    if apart:
+        # bounded only if the fused loop is itself not reproducible
+        (fst2, fcr2), _ = loop(run.run_episode_fused)
+        again = fields_apart(torch, fst, fst2) + fields_apart(torch, fcr, fcr2, "crit.")
+        moved = torch.linalg.norm(st.pos - fst.pos, dim=-1) > 1e-2
+        moved |= st.is_cbv != fst.is_cbv
+        out["fused_vs_fused_fields_apart"] = again
+        out["per_tick_vs_fused_agents_apart_share"] = moved.float().mean().item()
+        if not again or out["per_tick_vs_fused_agents_apart_share"] > LOOP_AGENTS_APART:
+            raise AssertionError(f"per-tick vs fused: fields {apart} differ; the fused loop "
+                                 f"against itself: {again}")
+    del env, ego, cbv
+
+    cli_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_cli_per_tick")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    common = ["--num_scenario", str(S), "--num_agents", str(A), "--blocks", "2",
+              "--num_episodes", "1", "--out_dir", cli_dir]
+    pluto_w = lambda p: {n: t.detach().clone() for n, t in p.model.named_parameters()}
+    ppo_w = lambda p: [t.detach().clone() for t in p.ppo.parameters()]
+    ppo_moved = lambda p, before: sum(
+        (t.detach() - b).abs().sum().item() for t, b in zip(p.ppo.parameters(), before))
+
+    def cli(path, argv, registry, key, snapshot):
+        zero_launches(counters)
+        t1 = time.perf_counter()
+        with recording(registry, key, snapshot) as made, \
+                contextlib.redirect_stdout(io.StringIO()) as o:
+            g = run.main(argv)
+        torch.cuda.synchronize()
+        out[f"{path}_s"] = time.perf_counter() - t1
+        launches[path] = read_launches(counters)
+        if g.total_routes != S or not math.isfinite(g.avg_driving_score):
+            raise AssertionError(f"{path}: {g.total_routes} routes, driving score "
+                                 f"{g.avg_driving_score}")
+        return made[0], o.getvalue()
+
+    # (b) per-tick train_cbv to one fit round
+    ticks = 2 * CHUNK
+    (pol, before), _ = cli("cli_per_tick_train_cbv",
+                           ["--mode", "train_cbv", "--no_fused", "--max_ticks", str(ticks),
+                            *common, f"buffer_capacity={PER_TICK_BUFFER}"],
+                           run.CBV_POLICY_LIST, "rift_pluto", pluto_w)
+    steps = pol.train_rounds * pol.train_cfg.epochs * (
+        PER_TICK_BUFFER // pol.train_cfg.batch_size)
+    check_counts("CLI per-tick train_cbv", launches["cli_per_tick_train_cbv"],
+                 add(act_launches(ticks, train=True, legacy=True), fit_launches(steps)))
+    moved, changed = params_moved(torch, pol.model, before)
+    if not (pol.train_rounds == 1 and pol.losses and all(map(math.isfinite, pol.losses))
+            and moved > 0 and not changed):
+        raise AssertionError(f"CLI per-tick train_cbv: {pol.train_rounds} rounds, losses "
+                             f"{pol.losses}, pi_head moved {moved}, others changed {changed}")
+    out["cli_per_tick_train_cbv"] = {"losses": pol.losses, "pi_head_abs_delta": moved}
+
+    # (c) train_ego: the PPO ego; the default rift_pluto CBVs act in train mode
+    ticks = CHUNK
+    (ego, before), _ = cli("cli_train_ego",
+                           ["--mode", "train_ego", "--ego_cfg", "ppo", "--max_ticks",
+                            str(ticks), *common], run.EGO_POLICY_LIST, "ppo", ppo_w)
+    check_counts("CLI train_ego", launches["cli_train_ego"],
+                 act_launches(ticks, train=True, legacy=True))
+    delta = ppo_moved(ego, before)
+    if not (ego.losses and all(map(math.isfinite, ego.losses)) and delta > 0):
+        raise AssertionError(f"CLI train_ego: losses {ego.losses}, ego moved {delta}")
+    out["cli_train_ego"] = {"losses": ego.losses, "ego_abs_delta": delta}
+
+    # (d) the classic PPO CBVs: raw controls, no hand kernel on the path
+    for key in ("ppo", "frea"):
+        path = f"cli_classic_{key}"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (pol, before), _ = cli(path, ["--mode", "train_cbv", "--cbv_cfg", key,
+                                          "--max_ticks", str(CHUNK), *common],
+                                   run.CBV_POLICY_LIST, key, ppo_w)
+        check_counts(path, launches[path], act_launches(0))
+        delta = ppo_moved(pol, before)
+        warned = any("frea" in str(w.message) for w in caught)
+        if not (pol.losses and all(map(math.isfinite, pol.losses)) and delta > 0
+                and warned == (key == "frea")):
+            raise AssertionError(f"{path}: losses {pol.losses}, moved {delta}, warned {warned}")
+        out[path] = {"losses": pol.losses, "abs_delta": delta}
+
+    # (e) eval with the expert_disturb ego, which only the per-tick loop runs
+    _, text = cli("cli_expert_disturb_eval", ["--mode", "eval", "--ego_cfg", "expert_disturb",
+                                              "--max_ticks", str(CHUNK), *common],
+                  run.EGO_POLICY_LIST, "expert_disturb", lambda p: None)
+    check_counts("CLI expert_disturb eval", launches["cli_expert_disturb_eval"],
+                 act_launches(CHUNK, legacy=True))
+    ds = [line for line in text.splitlines() if line.startswith("episode 0: DS=")]
+    if not ds:
+        raise AssertionError("CLI expert_disturb eval printed no driving score")
+    out["cli_expert_disturb_eval"] = ds[0]
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2006,6 +2212,11 @@ def main() -> int:
         if not launches["route_plant_eval_0"][name] > 0:
             raise AssertionError(f"{name}: no launch on the route eval")
 
+    # ---- phase 16: the per-tick loop, classic PPO and train_ego
+    per_tick, per_tick_launches = per_tick_path(torch, tmap, counters)
+    launches.update(per_tick_launches)
+    print(f"# per-tick loop done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -2054,6 +2265,7 @@ def main() -> int:
         "cli_defaults": cli,
         "route_plant_eval": route,
         "route_cli": rcli,
+        "per_tick": per_tick,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

@@ -371,6 +371,19 @@ def _fit_cell(lo, hi, nominal_cell, fixed_shape):
     return max(nominal_cell, ey / (fy - 1.01), ex / (fx - 1.01))
 
 
+def _unique_pairs(cand):
+    """(row, lane) index arrays of each row's distinct lanes >= 0 of `cand`
+    [n, k] (candidate slots repeat lanes; a lane's distance or clearance
+    is the same in every slot it holds, so each is computed once)."""
+    import numpy as onp
+
+    s = onp.sort(cand, axis=1)
+    first = onp.ones_like(s, dtype=bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    rows, cols = onp.nonzero(first & (s >= 0))
+    return rows, s[rows, cols]
+
+
 def _build_drivable_raster(
     centerline: np.ndarray,  # [L, P, 2]
     width: np.ndarray,  # [L]
@@ -429,17 +442,18 @@ def _build_drivable_raster(
         _, vidx = tree.query(pts, k=q, workers=-1)
         lanes = vert_lane[onp.atleast_2d(vidx)]  # [n, q] (dupes fine)
         lanes = lanes[:, :: max(q // k, 1)][:, :k]  # subsample to k candidates
-        cl = centerline[lanes]  # [n, k, P, 2]
-        a, b = cl[:, :, :-1], cl[:, :, 1:]  # segments
+        pi, lanes = _unique_pairs(lanes)
+        cl = centerline[lanes]  # [m, P, 2]
+        a, b = cl[:, :-1], cl[:, 1:]  # segments
         ab = b - a
-        ap = pts[:, None, None] - a
+        ap = pts[pi][:, None] - a
         t = onp.clip(
             (ap * ab).sum(-1) / onp.maximum((ab * ab).sum(-1), 1e-9), 0.0, 1.0
         )
         proj = a + t[..., None] * ab
-        d = onp.linalg.norm(pts[:, None, None] - proj, axis=-1).min(-1)  # [n, k]
+        d = onp.linalg.norm(pts[pi][:, None] - proj, axis=-1).min(-1)  # [m]
         half_w = width[lanes] * 0.5 + margin
-        out[sel] = (d <= half_w).any(-1)
+        out[sel] = onp.bincount(pi, d <= half_w, minlength=len(sel)) > 0
     out = out.reshape(ry, rx)
     if fixed_shape is not None:
         out = _pad_grid_edge(out, fixed_shape)
@@ -508,30 +522,28 @@ def _build_clearance_raster(
         cx = onp.clip(cellf[:, 0].astype(onp.int64), 0, gx - 1)
         cy = onp.clip(cellf[:, 1].astype(onp.int64), 0, gy - 1)
         cand = grid_lanes[cy, cx]  # [n, K]
-        has = cand >= 0
-        li = onp.maximum(cand, 0)
-        cl = centerline[li]  # [n, K, P, 2]
-        a, b = cl[:, :, :-1], cl[:, :, 1:]
+        cand = onp.where(valid[onp.maximum(cand, 0)], cand, -1)
+        pi, li = _unique_pairs(cand)
+        p = pts[pi]  # [m, 2]
+        cl = centerline[li]  # [m, P, 2]
+        a, b = cl[:, :-1], cl[:, 1:]
         ab = b - a
-        ap = pts[:, None, None] - a
+        ap = p[:, None] - a
         t = onp.clip(
             (ap * ab).sum(-1) / onp.maximum((ab * ab).sum(-1), 1e-12),
             0.0, 1.0,
         )
         proj = a + t[..., None] * ab
-        d2 = onp.sum((pts[:, None, None] - proj) ** 2, axis=-1)  # [n, K, P-1]
+        d2 = onp.sum((p[:, None] - proj) ** 2, axis=-1)  # [m, P-1]
         seg = onp.argmin(d2, axis=-1)
-        take = lambda arr: onp.take_along_axis(
-            arr, seg[..., None, None].repeat(2, -1), axis=2
-        )[:, :, 0]
-        pb = take(proj)
-        tb = take(ab)
+        pair = onp.arange(len(li))
+        pb = proj[pair, seg]
+        tb = ab[pair, seg]
         tb /= onp.maximum(onp.linalg.norm(tb, axis=-1, keepdims=True), 1e-12)
-        rel = pts[:, None] - pb
+        rel = p - pb
         lat = onp.abs(rel[..., 0] * tb[..., 1] - rel[..., 1] * tb[..., 0])
-        clr = width[li] * 0.5 - lat
-        clr = onp.where(has & valid[li], clr, -onp.inf)
-        clr = clr.max(-1)  # [n]
+        clr = onp.full(len(pts), -onp.inf)
+        onp.maximum.at(clr, pi, width[li] * 0.5 - lat)  # the best lane of each point
         block = out[r0 : r0 + chunk_rows].reshape(-1)
         block[nearsel] = onp.clip(clr, -CLEARANCE_CLAMP, CLEARANCE_CLAMP)
         out[r0 : r0 + chunk_rows] = block.reshape(len(yy), rx)

@@ -89,7 +89,14 @@ class _PointsEncoder(torch.autograd.Function):
 
 def _forward(x, mask, weights, out_dim, has_ln):
     if x.device.type == "cpu":
-        return points_forward_ref(x, mask, weights, has_ln)
+        # only the rows with a valid point: a row masked whole encodes to 0
+        P, C = x.shape[-2:]
+        xf, mf = x.reshape(-1, P, C), mask.reshape(-1, P)
+        keep = mf.any(-1).nonzero()[:, 0]
+        out = torch.zeros((xf.shape[0], out_dim), dtype=torch.float32)
+        if len(keep):
+            out[keep] = points_forward_ref(xf[keep], mf[keep], weights, has_ln)
+        return out.reshape(x.shape[:-2] + (out_dim,))
     if x.device.type != "cuda":
         raise ValueError(f"points_encoder: unsupported device {x.device}")
     if x.dim() != 3 or mask.shape != x.shape[:2] or mask.dtype != torch.bool:

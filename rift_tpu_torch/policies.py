@@ -1,5 +1,6 @@
-"""Policy registries: the CBV and ego zoos (port of rift_tpu/policies.py,
-the Pluto family and the rule, PDM-Lite, expert and PlanT egos).
+"""Policy registries: the CBV and ego zoos (port of rift_tpu/policies.py:
+the Pluto family, the classic PPO CBVs (`ppo`, `frea`, `fppo_rs`), and
+the rule, PDM-Lite, expert, expert-disturb, PlanT and PPO egos).
 
 `CBV_POLICY_LIST` and `EGO_POLICY_LIST` hold the ported keys only; asking
 for another raises a KeyError that names the ported ones (ROADMAP.md
@@ -11,7 +12,9 @@ parameters it trains. Pluto runs on the legacy per-CBV tokens, the JAX
 package's default, unless its config sets `canonical_tokens` (the
 frame-invariant tokens, with the map tokens computed once per weight
 change). The two conventions share one parameter tree but not trained
-weights.
+weights. An ego's `act` gives its waypoints [S, T, 2] (the rl-type `ppo`
+ego: a dict with raw controls `ctrl` [S, 3]) for run.py's per-tick loop;
+the fused loop computes the egos of FUSED_EGO_KIND inside rollout_chunk.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Callable
 
 import torch
 
+from .ego.pdm_ego import pdm_ego_waypoints
+from .ego.rule_ego import rule_ego_waypoints
 from .models.plant import PlanTModel, init_plant_weights, plant_ego_waypoints
 from .models.plant.train import load_plant_weights
 from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
@@ -37,7 +42,10 @@ from .rl import (
     sft_loss,
     smooth_l1,
 )
+from .rl.classic import ClassicPPO, cbv_normal_obs, ego_normal_obs, rl_action_to_control
 from .rollout import store_chunk
+from .scenario.recognition import cbv_slot_assignment
+from .utils.checkpoint import CheckpointManager
 from .utils.params_io import flatten_params, load_jax_params, load_params_npz
 from .utils.params_io import save_params_npz
 
@@ -91,7 +99,8 @@ def _frozen_copy(model):
 
 class PlutoPolicy:
     """Frozen pretrained Pluto ('pluto'), on the map's device, with
-    weights made from the config's seed."""
+    weights made from the config's seed (0 by default; the CLI's `--seed`
+    does not reach it, as in the JAX CLI)."""
 
     name = "pluto"
     type = "il"
@@ -114,7 +123,6 @@ class PlutoPolicy:
                 value_head=self.value_head,
                 device=tmap.device,
             ).eval()
-        self.gen = torch.Generator(tmap.device).manual_seed(seed)
         self._map_tok = self._map_tok_of = None
 
     def act(self, spec, state, train=False):
@@ -210,8 +218,10 @@ class _FineTunedPluto(PlutoPolicy):
             self.ref_model = _frozen_copy(self.model)
 
     def train_round(self):
-        """One `fit` round on the buffer (then emptied); returns the mean
-        loss of each epoch, or [] with an empty buffer."""
+        """One `fit` round on the buffer (then emptied), its batches drawn
+        from a generator seeded by the round's index (the JAX package's
+        `PRNGKey(train_rounds)`); returns the mean loss of each epoch, or []
+        with an empty buffer."""
         if self.buffer is None or int(self.buffer.size) == 0:
             return []
         if self.needs_reference and self.ref_model is None:
@@ -222,7 +232,8 @@ class _FineTunedPluto(PlutoPolicy):
                 stacklevel=2,
             )
             self.ref_model = _frozen_copy(self.model)
-        losses = fit(self.model, self.buffer, self._loss_fn, self.train_cfg, self.gen,
+        gen = torch.Generator(self.tmap.device).manual_seed(self.train_rounds)
+        losses = fit(self.model, self.buffer, self._loss_fn, self.train_cfg, gen,
                      round_idx=self.train_rounds)
         self.train_rounds += 1
         self._map_tok = None
@@ -430,8 +441,95 @@ class PPOPlutoPolicy(RTRPlutoPolicy):
         return -(surrogate + 0.01 * entropy) + self.VALUE_COEF * v_loss
 
 
+class ClassicCBVPolicy:
+    """'ppo': MLP PPO on the 3-agent relative-state observation, driving
+    (acc, steer) as raw controls (the reference's cbv/planning/rl/ppo.py).
+    Weights from the config's `seed` (0 by default); sampling noise from a
+    generator on the map's device seeded the same way."""
+
+    name = "ppo"
+    type = "rl"
+    trainable = True
+
+    def __init__(self, tmap, cfg=None):
+        cfg = cfg or {}
+        self.tmap = tmap
+        self.max_cbvs = cfg.get("max_cbvs", 3)
+        self.ppo = ClassicPPO(seed=cfg.get("seed", 0), device=tmap.device)
+        self.gen = torch.Generator(tmap.device).manual_seed(cfg.get("seed", 0))
+
+    def act(self, spec, state, train=False):
+        """Raw controls `ctrl` [S, A, 3] where `mask` [S, A] holds (the CBV
+        slots; never the ego), and per slot [S, C] the observation, sampled
+        (train) or mean action, its log-prob, the critic's value and
+        `cbv_slots`."""
+        S, A = state.alive.shape
+        slots = cbv_slot_assignment(state.is_cbv, self.max_cbvs)
+        valid = slots >= 0
+        slot = torch.clamp(slots, min=0)  # an invalid slot reads agent 0
+        obs = cbv_normal_obs(state, slot)
+        flat_obs = obs.reshape((-1,) + obs.shape[2:])
+        action, logp = self.ppo.act(flat_obs, self.gen, deterministic=not train)
+        ctrl_sc = rl_action_to_control(action).reshape(S, -1, 3)
+        # scatter to the CBV slots; an invalid slot writes agent 0's old
+        # value back (slot 0 is the ego, never a CBV)
+        scen = torch.arange(S, device=slots.device)[:, None]
+        ctrl = torch.zeros((S, A, 3), device=obs.device)
+        ctrl[scen, slot] = torch.where(valid[..., None], ctrl_sc, ctrl[scen, slot])
+        mask = torch.zeros((S, A), dtype=torch.bool, device=obs.device)
+        mask[scen, slot] = valid | mask[scen, slot]
+        mask[:, 0] = False
+        return {"ctrl": ctrl, "mask": mask, "obs": obs, "logp": logp.reshape(slots.shape),
+                "action": action.reshape(slots.shape + (2,)),
+                "value": self.ppo.value(flat_obs).reshape(slots.shape), "cbv_slots": slots}
+
+    def train_round(self, batch):
+        return self.ppo.train(batch)
+
+    def save(self, mgr, episode):
+        mgr.save(self.ppo.state_dict(), episode, name=f"cbv_{self.name}")
+
+
+class FREAPolicy(ClassicCBVPolicy):
+    """'frea': in the reference, pretrained FREA weights, load only. With
+    `cfg['weights']`, a checkpoint directory of the port's (a
+    `cbv_<name>-episode_N` file, the latest, as `save` writes it) is
+    loaded; without, the same PPO net runs from fresh weights, with a
+    warning. (The JAX package's orbax checkpoints are not read.)"""
+
+    name = "frea"
+
+    def __init__(self, tmap, cfg=None):
+        super().__init__(tmap, cfg)
+        path = (cfg or {}).get("weights", "")
+        if path:
+            self.load_weights(path)
+        else:
+            warnings.warn(
+                f"{self.name}: reference behavior is load-only pretrained "
+                "weights (rl/frea.py); none provided via cfg['weights'] — "
+                "running an untrained PPO net instead.",
+                stacklevel=2,
+            )
+
+    def load_weights(self, path):
+        state_dict, _ = CheckpointManager(path).restore(name=f"cbv_{self.name}",
+                                                        map_location=self.tmap.device)
+        if state_dict is not None:
+            self.ppo.load_state_dict(state_dict)
+
+
+class FPPORsPolicy(FREAPolicy):
+    """'fppo_rs': FREA's load-only contract."""
+
+    name = "fppo_rs"
+
+
 CBV_POLICY_LIST: dict[str, Callable] = _Registry("CBV", {
     "standard": DummyPolicy,
+    "ppo": ClassicCBVPolicy,
+    "frea": FREAPolicy,
+    "fppo_rs": FPPORsPolicy,
     "pluto": PlutoPolicy,
     "bc_pluto": BCPlutoPolicy,
     "sft_pluto": SFTPlutoPolicy,
@@ -450,8 +548,8 @@ CBV_POLICY_LIST: dict[str, Callable] = _Registry("CBV", {
 class PDMLiteEgo:
     """'pdm_lite': the default privileged rule expert (ego/pdm_ego.py: a
     forecast sweep of every vehicle against the route, IDM to the first
-    hazard). `rollout.rollout_chunk` computes its waypoints every tick (its
-    kind in run.py's FUSED_EGO_KIND), so this class only names it."""
+    hazard). In the fused loop `rollout.rollout_chunk` computes its
+    waypoints every tick (its kind in run.py's FUSED_EGO_KIND)."""
 
     name = "pdm_lite"
     type = "unlearnable"
@@ -459,13 +557,20 @@ class PDMLiteEgo:
     def __init__(self, tmap, cfg=None):
         self.tmap = tmap
 
+    def act(self, spec, state):
+        return pdm_ego_waypoints(spec, state, self.tmap)
+
 
 class BehaviorEgo(PDMLiteEgo):
     """'behavior': the leader-gap IDM route follower (ego/rule_ego.py), the
-    CARLA BehaviorAgent's counterpart, which env_step runs when given no
-    ego trajectory."""
+    CARLA BehaviorAgent's counterpart. The fused loop leaves it to
+    env_step, which gives it the map (lights, junction yields, stop
+    signs); its `act`, as the JAX package's, computes it without the map."""
 
     name = "behavior"
+
+    def act(self, spec, state):
+        return rule_ego_waypoints(spec, state)
 
 
 class ExpertEgo(PDMLiteEgo):
@@ -473,6 +578,26 @@ class ExpertEgo(PDMLiteEgo):
     with a clear adjacent lane is overtaken instead of followed)."""
 
     name = "expert"
+
+    def act(self, spec, state):
+        return pdm_ego_waypoints(spec, state, self.tmap, lane_change=True)
+
+
+class ExpertDisturbEgo(ExpertEgo):
+    """'expert_disturb': the expert's waypoints plus Gaussian noise of std
+    `noise_std` (cfg, 0.3), one draw a tick from a generator on the map's
+    device seeded with `seed` (0: the JAX CLI never passes one)."""
+
+    name = "expert_disturb"
+
+    def __init__(self, tmap, cfg=None, noise_std=0.3, seed=0):
+        super().__init__(tmap, cfg)
+        self.noise_std = (cfg or {}).get("noise_std", noise_std)
+        self.gen = torch.Generator(tmap.device).manual_seed(seed)
+
+    def act(self, spec, state):
+        wp = super().act(spec, state)
+        return wp + self.noise_std * torch.randn(wp.shape, generator=self.gen, device=wp.device)
 
 
 class PlanTEgo:
@@ -511,9 +636,45 @@ class PlanTEgo:
         load_plant_weights(self.init(), path)
 
 
+class EgoPPO:
+    """'ppo': the MLP PPO ego on the relative-state observation (the
+    reference's ego/rl/ppo.py). `act` returns raw controls `ctrl` [S, 3]
+    for env_step's `ego_ctrl`, with the observation, action, log-prob and
+    value a GAE batch needs. Weights from the config's `seed`; sampling
+    noise from a generator on the map's device seeded 0."""
+
+    name = "ppo"
+    type = "rl"
+    trainable = True
+    ROUTE_AHEAD = 10  # route waypoints ahead of the cursor to steer for
+
+    def __init__(self, tmap, cfg=None):
+        self.tmap = tmap
+        self.ppo = ClassicPPO(seed=(cfg or {}).get("seed", 0), device=tmap.device)
+        self.gen = torch.Generator(tmap.device).manual_seed(0)
+
+    def act(self, spec, state, train=False):
+        cursor = torch.minimum(state.ego_route_cursor.to(torch.int32) + self.ROUTE_AHEAD,
+                               spec.ego_route_len - 1).long()
+        next_wp = spec.ego_route[torch.arange(cursor.shape[0], device=cursor.device),
+                                 cursor, :2]
+        obs = ego_normal_obs(state, next_wp)
+        action, logp = self.ppo.act(obs, self.gen, deterministic=not train)
+        return {"ctrl": rl_action_to_control(action), "obs": obs, "action": action,
+                "logp": logp, "value": self.ppo.value(obs)}
+
+    def train_round(self, batch):
+        return self.ppo.train(batch)
+
+    def save(self, mgr, episode):
+        mgr.save(self.ppo.state_dict(), episode, name="ego_ppo")
+
+
 EGO_POLICY_LIST: dict[str, Callable] = _Registry("ego", {
     "pdm_lite": PDMLiteEgo,
     "behavior": BehaviorEgo,
     "expert": ExpertEgo,
+    "expert_disturb": ExpertDisturbEgo,
     "plant": PlanTEgo,
+    "ppo": EgoPPO,
 })

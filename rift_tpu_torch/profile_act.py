@@ -2,7 +2,7 @@
 closed-loop tick goes on the card.
 
     python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick] [--steps 5]
-        [--legacy] [--ego rule|pdm|expert|plant] [--recog rule|attention] [--routes]
+        [--legacy] [--ego rule|pdm|expert|plant|ppo] [--recog rule|attention] [--routes]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
 1..3; with `--routes`, chip_smoke's route town of its route file's first
@@ -16,7 +16,9 @@ ticks first (so that rule recognition has promoted CBVs), then trace the
 env step alone (the ego's waypoints of `--ego`, the world tick, criteria,
 churn, recognition on every second call: the rule's, or with `--recog
 attention` ranked by chip_smoke's PlanT recognizer) or an eval tick (the
-act, then the env step). The `plant` ego is chip_smoke's PlanT_medium.
+act, then the env step). The `plant` ego is chip_smoke's PlanT_medium;
+the `ppo` ego (seeded weights, deterministic) drives the ego by raw
+controls (env_step's `ego_ctrl`), its act inside each traced call.
 Prints one JSON line: host wall time per call, device kernel time per call,
 the device's idle share, the number of kernel launches per call, the
 launches per call of each hand-written kernel (its wrapper's counter) and
@@ -51,7 +53,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--legacy", action="store_true", help="per-CBV (legacy) tokens")
-    ap.add_argument("--ego", choices=("rule", "pdm", "expert", "plant"), default="rule")
+    ap.add_argument("--ego", choices=("rule", "pdm", "expert", "plant", "ppo"), default="rule")
     ap.add_argument("--recog", choices=("rule", "attention"), default="rule")
     ap.add_argument("--routes", action="store_true", help="chip_smoke's route town")
     args = ap.parse_args()
@@ -59,6 +61,7 @@ def main() -> int:
         print("profile_act: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from rift_tpu_torch import policies
     from rift_tpu_torch.map import make_grid_town
     from rift_tpu_torch.models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
     from rift_tpu_torch.rl import TrainConfig, gather_batch, make_optimizer, rift_loss_fn
@@ -108,8 +111,13 @@ def main() -> int:
                                        tick=0)
         ticks = iter(range(30, 10**6))
 
+        ppo_ego = policies.EgoPPO(tmap) if args.ego == "ppo" else None
+
         def act():
-            cbv = {"ego_traj": ego_waypoints(args.ego, tmap, spec, state, ego_model)}
+            if ppo_ego is not None:
+                cbv = {"ego_ctrl": ppo_ego.act(spec, state)["ctrl"]}
+            else:
+                cbv = {"ego_traj": ego_waypoints(args.ego, tmap, spec, state, ego_model)}
             if args.mode == "tick":
                 res = pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C,
                                     canonical=canonical, map_tok=tok)

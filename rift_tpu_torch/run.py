@@ -1,9 +1,12 @@
 """CLI entry: mode dispatch over the policy zoos (port of rift_tpu/run.py,
-the modes `eval` and `train_cbv` on the synthetic towns and on route files).
+the modes `eval`, `train_cbv` and `train_ego` on the synthetic towns and
+on route files).
 
   eval       closed-loop benchmark and leaderboard statistics
   train_cbv  fine-tune the CBV policy: buffer full -> fit -> the updated
-             weights drive the next ticks
+             weights drive the next ticks (the Pluto family); GAE PPO
+             rounds at each episode's end (the classic rl CBVs)
+  train_ego  PPO on the rl-type ego (`ppo`) through env_step's `ego_ctrl`
 
     python -m rift_tpu_torch.run --mode eval --ego_cfg pdm_lite \\
         --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid
@@ -27,13 +30,21 @@ PlanT scorer of dim 128, 4 layers, 4 heads, `--recog_weights`) take
 weights in the JAX package's npz format; without them they start from
 seeded weights.
 
-Ticks run in chunks of FUSED_CHUNK through rollout.rollout_chunk, with
-the ego's waypoints computed every tick inside the chunk (FUSED_EGO_KIND).
-Everything runs on CUDA unless `--device cpu`. Not ported yet
-(ROADMAP.md): the modes train_ego and collect_data, rendering, the
-per-tick host loop, run tracking, `--repetitions` (parsed, and read by
-neither CLI), and the egos `expert_disturb` and the E2E stacks (asking
-for one raises, naming the ported egos).
+In eval and the Pluto family's train_cbv, ticks run in chunks of
+FUSED_CHUNK through rollout.rollout_chunk, with the ego's waypoints
+computed every tick inside the chunk (FUSED_EGO_KIND). Everything else
+(`--no_fused`, an ego outside FUSED_EGO_KIND such as `expert_disturb` or
+`ppo`, a classic rl CBV, train_ego) runs the per-tick loop `run_episode`:
+the ego's and the CBVs' act, then one env step, with an `on_tick`
+observer that collects the classic PPO transitions. Each invocation opens
+a run directory under `<out_dir>/<mode>/<tag>/runs` (utils/tracking.py);
+`RIFT_TPU_TIMING=1` prints each episode's phase times. As in the JAX CLI,
+`--seed` seeds the scenes and the recognizer, not the policies (their
+configs' `seed`), and `--resume` outside eval restores nothing: the run
+starts again at episode 0. Everything runs on CUDA unless `--device cpu`.
+Not ported yet (ROADMAP.md): the mode collect_data, `--render`,
+`--repetitions` (parsed, and read by neither CLI), and the E2E egos
+(asking for one raises, naming the ported egos).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 import warnings
 
 import numpy as np
@@ -51,7 +63,9 @@ from .map.from_route import map_from_routes, shared_map_from_routes
 from .models.plant import PlanTModel, init_plant_weights
 from .models.plant.train import load_plant_weights
 from .policies import CBV_POLICY_LIST, EGO_POLICY_LIST
-from .rollout import rollout_chunk
+from .rl.classic import GOAL_RADIUS, cbv_full_train_reward, ego_shaped_reward
+from .rl.losses import gae
+from .rollout import flush_pending, rollout_chunk, tick_extras
 from .scenario import TrafficEnv
 from .scenario.routes import EvalDataLoader, TrainDataLoader, parse_routes_file
 from .scenario.statistics import StatisticsManager
@@ -59,8 +73,10 @@ from .utils.checkpoint import CheckpointManager
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
 from .utils.logger import Logger
+from .utils.tracking import init_run
 
 FUSED_CHUNK = 20  # ticks per rollout_chunk call
+FLUSH_K = 16  # per-tick fine-tune samples stored together (returns, GAE horizon)
 PAD_ROUTE_LANES = 256  # lane padding of the per-batch route towns
 # egos whose waypoints rollout_chunk computes in its tick loop
 FUSED_EGO_KIND = {
@@ -115,6 +131,146 @@ def run_episode_fused(env, ego, cbv, state, crit, spec, max_ticks, train=False,
     return state, crit
 
 
+def _step_kwargs(ego_out, cbv_out) -> dict:
+    """Route the policies' outputs to env_step's control inputs: an ego
+    dict's raw `ctrl`, [S, T, 2] waypoints or [S, 3] raw controls; the
+    CBVs' waypoints `traj` or raw controls `ctrl`, each with its mask."""
+    kw = {}
+    if isinstance(ego_out, dict):
+        kw["ego_ctrl"] = ego_out["ctrl"]
+    elif ego_out.dim() == 3:
+        kw["ego_traj"] = ego_out
+    elif ego_out.dim() == 2:
+        kw["ego_ctrl"] = ego_out
+    if "traj" in cbv_out:
+        kw["cbv_traj"], kw["cbv_traj_mask"] = cbv_out["traj"], cbv_out["mask"]
+    elif "ctrl" in cbv_out:
+        kw["cbv_ctrl"], kw["cbv_ctrl_mask"] = cbv_out["ctrl"], cbv_out["mask"]
+    return kw
+
+
+def _ego_act(ego, spec, state, train):
+    """The ego's act; an ego whose `act` takes no `train` is called without
+    (as the JAX CLI does, on a TypeError)."""
+    try:
+        return ego.act(spec, state, train=train)
+    except TypeError:
+        return ego.act(spec, state)
+
+
+def run_episode(env, ego, cbv, state, crit, spec, max_ticks, train=False, on_tick=None):
+    """The per-tick loop: the ego's and the CBVs' act, then one env step.
+    `on_tick(prev_state, state, crit, ego_out, cbv_out)` observes every
+    transition. In train mode a policy with `store_chunk` whose act gave
+    `old_logits` (the fine-tuned Pluto family) stores its samples in
+    windows of FLUSH_K ticks, also in train_ego, which never fits them (as
+    the JAX CLI). Returns (state, crit)."""
+    pending = []
+    store = getattr(cbv, "store_chunk", None)
+    for _ in range(max_ticks):
+        ego_out = _ego_act(ego, spec, state, train)
+        cbv_out = cbv.act(spec, state, train=train)
+        prev_state = state
+        state, crit = env.step(state, crit, **_step_kwargs(ego_out, cbv_out))
+        if train and store is not None and "old_logits" in cbv_out:
+            pending.append(tick_extras(env.tmap, cbv_out, state, crit))
+            if len(pending) >= FLUSH_K:
+                flush_pending(store, pending)
+        if on_tick is not None:
+            on_tick(prev_state, state, crit, ego_out, cbv_out)
+        if env.all_done(crit):
+            break
+    if store is not None:
+        flush_pending(store, pending)
+    return state, crit
+
+
+TRAJ_KEYS = ("obs", "action", "logp", "value", "reward", "done", "valid")
+
+
+def _gae_batch(ppo, traj, bootstrap_value):
+    """traj: [T, B, ...] stacks of obs, action, logp, value, reward, done
+    and valid. GAE per column, bootstrapped with `bootstrap_value` [B];
+    returns (the flattened train batch over the steps where the column was
+    valid, up to and including its first done, the number of steps)."""
+    values = torch.cat([traj["value"], bootstrap_value[None]], dim=0)
+    adv, ret = gae(traj["reward"], values, traj["done"], ppo.gamma, ppo.lam)
+    done = traj["done"].bool()
+    after_done = torch.cat([torch.zeros_like(done[:1]), torch.cumsum(done, 0)[:-1] > 0])
+    keep = traj["valid"].bool() & ~after_done
+    return {
+        "obs": traj["obs"][keep], "action": traj["action"][keep],
+        "old_log_prob": traj["logp"][keep], "advantage": adv[keep], "returns": ret[keep],
+    }, int(keep.sum())
+
+
+def train_ego_episode(env, ego, cbv, state, crit, spec, max_ticks, tmap):
+    """One batched episode of the rl ego's transitions (the shaped reward
+    from its lateral offset on its lane), then its PPO round on them with
+    GAE. Returns (state, crit, losses)."""
+    traj = {k: [] for k in TRAJ_KEYS}
+
+    def on_tick(prev_state, state, crit_now, ego_out, cbv_out):
+        # projected on `tmap`, the map the CLI built first, not env.tmap:
+        # the JAX CLI's, a stale map on per-batch route towns (ROADMAP.md)
+        _, lane_lat, _ = tmap.project(state.lane[:, 0].long(), state.pos[:, 0])
+        traj["reward"].append(ego_shaped_reward(
+            speed_lon=state.speed[:, 0], steer=ego_out["ctrl"][:, 1], lane_dist=lane_lat,
+            collided=state.collision[:, 0]))
+        for k in ("obs", "action", "logp", "value"):
+            traj[k].append(ego_out[k])
+        traj["done"].append(crit_now.done)
+        traj["valid"].append(torch.ones_like(crit_now.done))
+
+    state, crit = run_episode(env, ego, cbv, state, crit, spec, max_ticks, train=True,
+                              on_tick=on_tick)
+    if not traj["obs"]:
+        return state, crit, []
+    stacked = {k: torch.stack(v) for k, v in traj.items()}
+    batch, n = _gae_batch(ego.ppo, stacked, ego.ppo.value(stacked["obs"][-1]))
+    return state, crit, ego.train_round(batch) if n > 0 else []
+
+
+def train_classic_cbv_episode(env, ego, cbv, state, crit, spec, max_ticks):
+    """One batched episode of the classic rl CBVs' transitions (goal
+    progress, carried across ticks while a slot keeps its agent; collisions
+    with agents other than the ego; reaching the goal), then a PPO round on
+    them with GAE. Returns (state, crit, losses)."""
+    traj = {k: [] for k in TRAJ_KEYS}
+    prev = None  # (slots, goal distance) of the last tick
+
+    def on_tick(prev_state, state, crit_now, ego_out, cbv_out):
+        nonlocal prev
+        slots = cbv_out["cbv_slots"]  # [S, C]
+        valid = slots >= 0
+        sl = torch.clamp(slots, min=0)
+        scen = torch.arange(slots.shape[0], device=slots.device)[:, None]
+        goal_dist = torch.linalg.norm(state.goal[scen, sl] - state.pos[scen, sl], dim=-1)
+        if prev is None:
+            gd_prev, same = goal_dist, torch.ones_like(valid)
+        else:
+            same = prev[0] == slots
+            gd_prev = torch.where(same, prev[1], goal_dist)
+        collided = state.collision[scen, sl] & valid
+        with_other = collided & (state.collided_with[scen, sl] != 0)
+        reached = (goal_dist < GOAL_RADIUS) & valid
+        traj["reward"].append(cbv_full_train_reward(gd_prev, goal_dist, with_other, reached))
+        traj["done"].append(collided | reached | crit_now.done[:, None] | ~same)
+        traj["valid"].append(valid)
+        for k in ("obs", "action", "logp", "value"):
+            traj[k].append(cbv_out[k])
+        prev = (slots, goal_dist)
+
+    state, crit = run_episode(env, ego, cbv, state, crit, spec, max_ticks, train=True,
+                              on_tick=on_tick)
+    if not traj["obs"]:
+        return state, crit, []
+    # the CBV axis joins the batch axis: [T, S, C, ...] -> [T, S*C, ...]
+    stacked = {k: torch.stack(v).flatten(1, 2) for k, v in traj.items()}
+    batch, n = _gae_batch(cbv.ppo, stacked, cbv.ppo.value(stacked["obs"][-1]))
+    return state, crit, cbv.train_round(batch) if n > 0 else []
+
+
 def _buf_size(cbv) -> int:
     buf = getattr(cbv, "buffer", None)
     return 0 if buf is None else int(buf.size)
@@ -144,7 +300,7 @@ def _check_new_samples(cbv, pre_size: int, ep: int, streak: int = 0) -> int:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("rift_tpu_torch")
-    p.add_argument("--mode", default="eval", choices=["eval", "train_cbv"])
+    p.add_argument("--mode", default="eval", choices=["eval", "train_cbv", "train_ego"])
     p.add_argument("--ego_cfg", default="pdm_lite")
     p.add_argument("--cbv_cfg", default="rift_pluto")
     p.add_argument("--num_scenario", type=int, default=4)
@@ -203,6 +359,9 @@ def parse_args(argv=None):
                         "before the run; also anchors GRPO's KL reference")
     p.add_argument("--save_pretrain", default="",
                    help="after the run, save the CBV's params as a pretrain npz")
+    p.add_argument("--no_fused", action="store_true",
+                   help="force the per-tick host loop (debugging); by "
+                        "default eval/train_cbv run fused chunks")
     p.add_argument("--device", default="cuda", help="'cpu' to run on the CPU")
     p.add_argument("overrides", nargs="*", help="hydra-style key=value")
     return p.parse_args(argv)
@@ -220,7 +379,6 @@ def main(argv=None):
     else:
         max_cbvs = cbv_cfg.get("max_cbvs", 2 if args.mode == "eval" else 3)
     cbv_cfg["max_cbvs"] = max_cbvs
-    cbv_cfg.setdefault("seed", args.seed)
     ego_cls = EGO_POLICY_LIST[ego_cfg.get("policy", args.ego_cfg)]
     cbv_cls = CBV_POLICY_LIST[cbv_cfg.get("policy", args.cbv_cfg)]
     S = args.num_scenario
@@ -233,13 +391,20 @@ def main(argv=None):
     tmap, route_configs = build_map(args, device)
     loader = shared_paths = None
     route_pad = PAD_ROUTE_LANES  # grows if a batch needs more lanes
+    last_town = {}  # the last batch's (route configs, pad) -> its town
 
     def route_town(cfgs):
         """map_from_routes of a batch of route configs -> (tmap, lane_paths),
-        padded to `route_pad` lanes."""
-        return map_from_routes([c.keypoints for c in cfgs], num_lanes=2,
-                               pad_lanes_to=route_pad, stop_ratio=args.stop_ratio,
-                               device=device)
+        padded to `route_pad` lanes. A batch equal to the last one built is
+        not built again: the town built up front serves the first eval
+        batch when that batch is the file's first S routes."""
+        key = (tuple(map(id, cfgs)), route_pad)
+        if key not in last_town:
+            last_town.clear()
+            last_town[key] = map_from_routes(
+                [c.keypoints for c in cfgs], num_lanes=2, pad_lanes_to=route_pad,
+                stop_ratio=args.stop_ratio, device=device)
+        return last_town[key]
 
     if route_configs is not None:
         if args.mode == "eval":
@@ -295,14 +460,14 @@ def main(argv=None):
     ckpt = CheckpointManager(os.path.join(out_dir, "model_ckpt"))
     logger = Logger(out_dir)
 
+    # --resume: eval runs only the missing episodes; the train modes
+    # restore nothing and start at episode 0, as the JAX CLI (whose
+    # restore needs params a policy has not made yet; ROADMAP.md)
     start_ep = 0
-    if args.resume:
-        if args.mode == "eval":
-            start_ep = stats.resume_index // S
-            if loader is not None:
-                loader.configs = loader.configs[stats.resume_index:]
-        elif hasattr(cbv, "load"):
-            start_ep = cbv.load(ckpt) or 0
+    if args.resume and args.mode == "eval":
+        start_ep = stats.resume_index // S
+        if loader is not None:
+            loader.configs = loader.configs[stats.resume_index:]
 
     def reset_env():
         """A new episode: (state, crit, spec, the batch's real route configs
@@ -332,27 +497,82 @@ def main(argv=None):
         vis = torch.tensor([c.weather.visibility() for c in batch], dtype=torch.float32)
         return state, crit, spec.replace(visibility=vis.to(device)), real
 
-    train = args.mode == "train_cbv"
-    trainable = train and hasattr(cbv, "buffer_full")
+    train_cbv = args.mode == "train_cbv"
+    ego_is_rl = getattr(ego, "type", "") == "rl"
+    cbv_is_classic_rl = getattr(cbv, "type", "") == "rl"
+    can_fuse = (not args.no_fused and args.mode in ("eval", "train_cbv")
+                and not cbv_is_classic_rl and ego.name in FUSED_EGO_KIND)
+    trainable = train_cbv and hasattr(cbv, "buffer_full")
+    # one run directory per invocation (the reference's offline tracking)
+    track = init_run(args.mode, name=tag, config=vars(args),
+                     base_dir=os.path.join(out_dir, "runs"))
+    # RIFT_TPU_TIMING=1: each episode's seconds by phase
+    timing = os.environ.get("RIFT_TPU_TIMING", "") == "1"
+    t_phase = dict.fromkeys(("reset", "rollout", "fit", "save", "stats"), 0.0)
+    t_last = time.perf_counter()
+
+    def mark(phase):
+        nonlocal t_last
+        now = time.perf_counter()
+        t_phase[phase] += now - t_last
+        t_last = now
+
     empty_streak = 0
     for ep in range(start_ep, args.num_episodes):
+        ep_losses: list = []
+        mark("stats")
         state, crit, spec, batch_cfgs = reset_env()
-        pre_size = _buf_size(cbv)
-        fit_losses: list = []
-        fit_hook = (lambda: fit_losses.extend(cbv.train_round())) if trainable else None
-        state, crit = run_episode_fused(env, ego, cbv, state, crit, spec, args.max_ticks,
-                                        train=train, fit_hook=fit_hook)
-        if trainable and cbv.buffer_full():
-            fit_losses.extend(cbv.train_round())
-        if train:
-            # a fit within the episode shows that samples were collected,
-            # though it emptied the buffer
-            empty_streak = 0 if fit_losses else _check_new_samples(
-                cbv, pre_size, ep, empty_streak)
-        if fit_losses:
-            print(f"episode {ep}: fine-tune losses {fit_losses[:4]}... "
-                  f"({len(fit_losses)} this episode, {cbv.train_rounds} rounds in all)")
+        mark("reset")
+        if args.mode == "train_ego" and ego_is_rl:
+            state, crit, ep_losses = train_ego_episode(env, ego, cbv, state, crit, spec,
+                                                       args.max_ticks, tmap)
+            if ep_losses:
+                print(f"episode {ep}: ego PPO losses {ep_losses[:3]}...")
+            ego.save(ckpt, ep)
+        elif train_cbv and cbv_is_classic_rl:
+            state, crit, ep_losses = train_classic_cbv_episode(env, ego, cbv, state, crit,
+                                                               spec, args.max_ticks)
+            if ep_losses:
+                print(f"episode {ep}: classic CBV PPO losses {ep_losses[:3]}...")
             cbv.save(ckpt, ep)
+        elif can_fuse:
+            pre_size = _buf_size(cbv)
+            fit_s = 0.0
+
+            def fit_round():
+                nonlocal fit_s
+                t0 = time.perf_counter()
+                ep_losses.extend(cbv.train_round())
+                fit_s += time.perf_counter() - t0
+
+            state, crit = run_episode_fused(env, ego, cbv, state, crit, spec, args.max_ticks,
+                                            train=train_cbv,
+                                            fit_hook=fit_round if trainable else None)
+            if trainable and cbv.buffer_full():
+                fit_round()
+            mark("rollout")
+            t_phase["rollout"] -= fit_s
+            t_phase["fit"] += fit_s
+            if train_cbv:
+                # a fit within the episode shows that samples were
+                # collected, though it emptied the buffer
+                empty_streak = 0 if ep_losses else _check_new_samples(
+                    cbv, pre_size, ep, empty_streak)
+            if ep_losses:
+                print(f"episode {ep}: fine-tune losses {ep_losses[:4]}... "
+                      f"({len(ep_losses)} this episode, {cbv.train_rounds} rounds in all)")
+                cbv.save(ckpt, ep)
+                mark("save")
+        else:
+            pre_size = _buf_size(cbv)
+            state, crit = run_episode(env, ego, cbv, state, crit, spec, args.max_ticks,
+                                      train=train_cbv)
+            if train_cbv:
+                empty_streak = _check_new_samples(cbv, pre_size, ep, empty_streak)
+            if trainable and cbv.buffer_full():
+                ep_losses = cbv.train_round()
+                print(f"episode {ep}: fine-tune losses {ep_losses}")
+                cbv.save(ckpt, ep)
         if batch_cfgs is not None:
             stats.register_episode(crit, state, spec, route_ids=[c.name for c in batch_cfgs],
                                    num_valid=len(batch_cfgs),
@@ -363,14 +583,21 @@ def main(argv=None):
             n_new = S
         logger.write_live_results(stats.live_results_text())
         ds = float(np.mean([r.driving_score for r in stats.records[-n_new:]]))
-        logger.log_metrics(ep, driving_score=ds,
-                           **({"loss": float(fit_losses[-1])} if fit_losses else {}))
+        track.log({"episode": ep, "driving_score": ds,
+                   **({"loss": float(ep_losses[-1])} if ep_losses else {})}, step=ep)
         print(f"episode {ep}: DS={ds:.1f}")
+        if timing:
+            mark("stats")
+            print("  timing " + " ".join(f"{k}={v:.1f}s" for k, v in t_phase.items()))
+            for k in t_phase:
+                t_phase[k] = 0.0
 
     if args.save_pretrain and hasattr(cbv, "save_pretrain"):
         cbv.save_pretrain(args.save_pretrain)
         print(f"saved pretrain {args.save_pretrain}")
     g = stats.compute_global_statistics()
+    track.summary.update({k: v for k, v in g.__dict__.items() if isinstance(v, (int, float))})
+    track.finish()
     print(json.dumps(g.__dict__, indent=2))
     return g
 

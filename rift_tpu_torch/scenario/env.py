@@ -323,15 +323,18 @@ def wake_all_bvs(state):
 
 
 def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: CriteriaState,
-             cbv_traj=None, cbv_traj_mask=None, ego_traj=None, max_cbvs: int = 3,
-             dt: float = 0.1, recog_model=None, *, tick: int):
+             cbv_traj=None, cbv_traj_mask=None, ego_traj=None, ego_ctrl=None, cbv_ctrl=None,
+             cbv_ctrl_mask=None, max_cbvs: int = 3, dt: float = 0.1, recog_model=None, *,
+             tick: int):
     """One environment tick for every scenario -> (state, crit).
 
     The ego follows `ego_traj` [S, T, 2] local waypoints when given (the
-    PDM-Lite and expert egos), else the rule ego's; CBVs follow `cbv_traj`
-    [S, A, T, 2] local waypoints where `cbv_traj_mask` [S, A] holds;
-    everyone else runs the IDM autopilot. (The JAX package's raw-control
-    agents come with the rest of the ego zoo.) With `recog_model` (a
+    PDM-Lite, expert and PlanT egos) or the raw throttle/steer/brake
+    `ego_ctrl` [S, 3] (the rl-type ego), else the rule ego's; CBVs follow
+    `cbv_traj` [S, A, T, 2] local waypoints where `cbv_traj_mask` [S, A]
+    holds (the Pluto family) or raw controls `cbv_ctrl` [S, A, 3] where
+    `cbv_ctrl_mask` holds (the classic rl CBVs); everyone else runs the IDM
+    autopilot. With `recog_model` (a
     PlanTModel) recognition ranks the rule's candidates by its attention
     (attn_recognize_cbvs), else it is the rule's. `tick` is the state's tick
     before the step, the
@@ -360,10 +363,23 @@ def env_step(tmap: TensorMap, spec: ScenarioSpec, state: SimState, crit: Criteri
         )
         traj_mask = traj_mask | cbv_traj_mask
 
-    # finished scenarios are frozen: everyone brakes (raw control)
-    ctrl = torch.zeros((S, A, 3), device=dev)
-    ctrl[..., 2] = 1.0
-    ctrl_mask = crit.done[:, None].expand(S, A)
+    # raw-control agents (the rl-type action converters) take `ctrl` where
+    # `ctrl_mask` holds; finished scenarios are frozen: everyone brakes
+    brake = torch.zeros((S, A, 3), device=dev)
+    brake[..., 2] = 1.0
+    frozen = crit.done[:, None].expand(S, A)
+    ctrl, ctrl_mask = brake, frozen
+    if cbv_ctrl is not None or ego_ctrl is not None:
+        raw_mask = torch.zeros((S, A), dtype=torch.bool, device=dev)
+        if cbv_ctrl is not None:
+            ctrl = torch.where(cbv_ctrl_mask[..., None], cbv_ctrl, ctrl)
+            raw_mask = raw_mask | cbv_ctrl_mask
+        if ego_ctrl is not None:
+            ctrl = torch.cat([ego_ctrl[:, None].to(ctrl.dtype), ctrl[:, 1:]], dim=1)
+            raw_mask[:, 0] = True
+            traj_mask[:, 0] = False
+        ctrl = torch.where(frozen[..., None], brake, ctrl)
+        ctrl_mask = raw_mask | frozen
 
     state = world_step(
         tmap, spec, state, traj=traj, traj_mask=traj_mask & ~ctrl_mask,
@@ -472,11 +488,13 @@ class TrafficEnv:
         self.tick += ticks
         return start
 
-    def step(self, state, crit, cbv_traj=None, cbv_traj_mask=None, ego_traj=None):
+    def step(self, state, crit, cbv_traj=None, cbv_traj_mask=None, ego_traj=None,
+             ego_ctrl=None, cbv_ctrl=None, cbv_ctrl_mask=None):
         """One tick of the scenes of the last reset -> (state, crit)."""
         return env_step(
             self.tmap, self.spec, state, crit, cbv_traj=cbv_traj,
-            cbv_traj_mask=cbv_traj_mask, ego_traj=ego_traj, max_cbvs=self.max_cbvs,
+            cbv_traj_mask=cbv_traj_mask, ego_traj=ego_traj, ego_ctrl=ego_ctrl,
+            cbv_ctrl=cbv_ctrl, cbv_ctrl_mask=cbv_ctrl_mask, max_cbvs=self.max_cbvs,
             dt=self.dt, recog_model=self.recog_model, tick=self.advance(1),
         )
 

@@ -7,6 +7,8 @@ submodules carry the flax names, from the flat {path: array} form, e.g.
 merges instead, as the JAX package's `merge_params` (keys absent from the
 file keep their values). `save_params_npz` writes a torch module in that
 flat-key format, so a pretrain moves between the two packages both ways.
+`load_ppo_params` fills a classic PPO actor and critic from a JAX
+`ClassicPPO.params` (`PPOParams(actor, critic)`).
 """
 
 from __future__ import annotations
@@ -119,6 +121,15 @@ def load_jax_params(model: nn.Module, flat: dict, strict: bool = True) -> None:
     if unset == set(params):
         raise ValueError(f"load_jax_params: no key of the file matches the model "
                          f"(file: {sorted(flat)[:4]})")
+
+
+def load_ppo_params(actor: nn.Module, critic: nn.Module, params) -> None:
+    """A JAX `ClassicPPO.params` (`PPOParams(actor, critic)`, or a dict with
+    those keys, of flax params trees) into the port's ActorPPO and
+    CriticPPO, strictly."""
+    tree = params._asdict() if hasattr(params, "_asdict") else params
+    load_jax_params(actor, flatten_params(tree["actor"]))
+    load_jax_params(critic, flatten_params(tree["critic"]))
 
 
 def jax_flat_params(model: nn.Module) -> dict:

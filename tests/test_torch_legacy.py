@@ -46,7 +46,13 @@ from rift_tpu_torch.scenario import cbv_slot_assignment
 from rift_tpu_torch.utils.params_io import flatten_params, load_jax_params, load_params_npz
 from test_torch_pluto import _seeded_params, _to_torch
 from test_torch_train import _flat
-from torch_parity import map_from_jax, one_torch_thread, spec_from_jax, state_from_jax
+from torch_parity import (
+    map_from_jax,
+    one_torch_thread,
+    spec_from_jax,
+    state_from_jax,
+    stepped_scene,
+)
 
 S, A, C = 2, 6, 2
 DEPTH = 1
@@ -63,8 +69,8 @@ def world(tmp_path_factory):
     jmap = jax_grid_town(blocks=1, num_lanes=2)
     env = JaxTrafficEnv(jmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=3)
     jstate, crit, jspec = env.reset()
-    for _ in range(4):  # populate history
-        jstate, crit = env.step(jstate, crit)
+    # populate history: four steps, by the port's env
+    jstate, crit = stepped_scene(jmap, jstate, crit, jspec, 4, C)
     jstate = jax_wake(jstate)
     jstate = jstate.replace(
         is_cbv=jstate.is_cbv.at[:, 1:3].set(jstate.alive[:, 1:3]),

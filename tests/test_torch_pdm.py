@@ -48,6 +48,7 @@ from torch_parity import (
     one_torch_thread,
     spec_from_jax,
     state_from_jax,
+    stepped_scene,
 )
 
 
@@ -80,14 +81,13 @@ def _hand_scenes():
 
 def _town_scene(jmap):
     """Four scenarios with 2 walkers and 2 statics each, every BV awake,
-    six ticks on the PDM ego, then a car parked 15 m ahead on scenario
-    0's route."""
+    six ticks on the PDM ego (the port's env and ego), then a car parked
+    15 m ahead on scenario 0's route."""
     env = JaxTrafficEnv(jmap, num_scenarios=4, num_agents=8, seed=21, num_walkers=2,
                         num_statics=2)
     jstate, crit, jspec = env.reset()
     jstate = jax_wake(jstate)
-    for _ in range(6):
-        jstate, crit = env.step(jstate, crit, ego_traj=jax_pdm(jspec, jstate, jmap))
+    jstate, _ = stepped_scene(jmap, jstate, crit, jspec, 6, ego=pdm_ego_waypoints)
     route = np.asarray(jspec.ego_route[0])
     i = int(np.argmin(((route[:, :2] - np.asarray(jstate.pos[0, 0])) ** 2).sum(-1))) + 15
     jstate = jstate.replace(

@@ -45,7 +45,13 @@ from rift_tpu_torch.utils.params_io import (
     load_params_npz,
     save_params_npz as torch_save_npz,
 )
-from torch_parity import map_from_jax, one_torch_thread, spec_from_jax, state_from_jax
+from torch_parity import (
+    map_from_jax,
+    one_torch_thread,
+    spec_from_jax,
+    state_from_jax,
+    stepped_scene,
+)
 
 S, A, C = 2, 6, 2
 DEPTH = 1
@@ -90,8 +96,8 @@ def world(tmp_path_factory):
     jmap = jax_grid_town(blocks=1, num_lanes=2)
     env = JaxTrafficEnv(jmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=3)
     jstate, crit, jspec = env.reset()
-    for _ in range(4):  # populate history
-        jstate, crit = env.step(jstate, crit)
+    # populate history: four steps, by the port's env
+    jstate, crit = stepped_scene(jmap, jstate, crit, jspec, 4, C)
     # force CBVs on slot 1 (recognition has a 25-tick warmup)
     jstate = jax_wake(jstate)
     jstate = jstate.replace(

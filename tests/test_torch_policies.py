@@ -112,15 +112,21 @@ def test_teacher_label_and_registry():
             None if pos is None else torch.from_numpy(pos))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
-    assert set(policies.CBV_POLICY_LIST) == {"standard", "pluto", *FINE_TUNED}
-    assert set(policies.EGO_POLICY_LIST) == {"pdm_lite", "behavior", "expert", "plant"}
+    assert set(policies.CBV_POLICY_LIST) == {"standard", "pluto", *FINE_TUNED, "ppo", "frea",
+                                             "fppo_rs"} == set(jpolicies.CBV_POLICY_LIST)
+    e2e = {"vad", "uniad", "sparsedrive"}  # not ported yet
+    assert set(policies.EGO_POLICY_LIST) == set(jpolicies.EGO_POLICY_LIST) - e2e
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        policies.CBV_POLICY_LIST["ppo"]
+        policies.EGO_POLICY_LIST["vad"]
     with pytest.raises(KeyError, match="pdm_lite"):
-        policies.EGO_POLICY_LIST["expert_disturb"]
+        policies.EGO_POLICY_LIST["uniad"]
+    for name, cls in policies.CBV_POLICY_LIST.items():
+        assert cls.name == jpolicies.CBV_POLICY_LIST[name].name == name
+        assert cls.type == jpolicies.CBV_POLICY_LIST[name].type
     for name, cls in policies.EGO_POLICY_LIST.items():
         assert cls.name == jpolicies.EGO_POLICY_LIST[name].name == name
-        assert run.FUSED_EGO_KIND[name] == jax_run.FUSED_EGO_KIND[name]
+        assert cls.type == jpolicies.EGO_POLICY_LIST[name].type
+        assert run.FUSED_EGO_KIND.get(name) == jax_run.FUSED_EGO_KIND.get(name)
     for key in ("pluto", "rift_pluto", "ppo_pluto", "bc_pluto"):
         trainable = policies.CBV_POLICY_LIST[key](CPU_MAP, CANONICAL_SMALL)
         jtrain = jpolicies.CBV_POLICY_LIST[key](None, {})

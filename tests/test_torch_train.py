@@ -70,6 +70,7 @@ from torch_parity import (
     points_weights,
     spec_from_jax,
     state_from_jax,
+    stepped_scene,
 )
 
 S, A, C = 2, 6, 2
@@ -92,8 +93,8 @@ def world(tmp_path_factory):
     jmap = jax_grid_town(blocks=1, num_lanes=2)
     env = JaxTrafficEnv(jmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=3)
     jstate, crit, jspec = env.reset()
-    for _ in range(4):  # populate history
-        jstate, crit = env.step(jstate, crit)
+    # populate history: four steps, by the port's env
+    jstate, crit = stepped_scene(jmap, jstate, crit, jspec, 4, C)
     jstate = jax_wake(jstate)
     jstate = jstate.replace(
         is_cbv=jstate.is_cbv.at[:, 1:3].set(jstate.alive[:, 1:3]),

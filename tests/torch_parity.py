@@ -57,6 +57,42 @@ def spec_from_jax(jspec, device="cpu") -> ScenarioSpec:
     return ScenarioSpec(**_np_fields(ScenarioSpec, jspec)).to(device)
 
 
+def to_jax(tobj, jtemplate):
+    """A JAX container like `jtemplate` (a SimState, CriteriaState or
+    ScenarioSpec, with its trackers) holding a port container's values, in
+    the template's dtypes."""
+    import jax.numpy as jnp
+
+    if isinstance(jtemplate, tuple):  # the trackers' NamedTuples
+        return type(jtemplate)(*(to_jax(getattr(tobj, k), getattr(jtemplate, k))
+                                 for k in jtemplate._fields))
+    if dataclasses.is_dataclass(jtemplate):
+        return jtemplate.replace(**{f.name: to_jax(getattr(tobj, f.name),
+                                                   getattr(jtemplate, f.name))
+                                    for f in dataclasses.fields(jtemplate)})
+    if not isinstance(tobj, torch.Tensor):
+        return jtemplate
+    return jnp.asarray(tobj.numpy().astype(np.asarray(jtemplate).dtype))
+
+
+def stepped_scene(jmap, jstate, jcrit, jspec, ticks, max_cbvs=3, ego=None):
+    """`ticks` env steps from a JAX scene, run by the port's env
+    (test_torch_env holds it to the JAX one) to spare the JAX env step's
+    compile: the JAX (state, crit) after them. `ego(spec, state, tmap)`:
+    the port's ego waypoints for each step (env_step's rule ego if None)."""
+    from rift_tpu_torch.scenario import TrafficEnv
+
+    S, A = jstate.alive.shape
+    tmap = map_from_jax(jmap)
+    env = TrafficEnv(tmap, num_scenarios=S, num_agents=A, max_cbvs=max_cbvs, device="cpu")
+    env.spec = spec_from_jax(jspec)
+    state, crit = state_from_jax(jstate), crit_from_jax(jcrit)
+    for _ in range(ticks):
+        kw = {} if ego is None else {"ego_traj": ego(env.spec, state, tmap)}
+        state, crit = env.step(state, crit, **kw)
+    return to_jax(state, jstate), to_jax(crit, jcrit)
+
+
 def assert_fields_match(jobj, tobj, atol, rtol=0.0, prefix=""):
     """Every field of a port container (SimState, CriteriaState, nested
     trackers, ScenarioSpec, TensorMap) against the JAX one: integer and bool fields exactly (uint32
