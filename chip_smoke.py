@@ -8,7 +8,8 @@ CLI, on canonical tokens; then the same paths with the JAX CLI's
 defaults: legacy (per-CBV) tokens, the PDM-Lite ego, walkers and statics;
 then route files on route towns with the PlanT_medium ego and attention
 recognition; then the per-tick loop with raw controls, classic PPO and
-train_ego.
+train_ego; then data collection, PlanT's behaviour-cloning fit and the
+Pluto checkpoint converter.
 
     python3 chip_smoke.py
 
@@ -133,7 +134,27 @@ Phases (any failure raises and exits non-zero):
      train_ego with the `ppo` ego (the rift_pluto CBVs' train act every
      tick; finite losses, ego weights moved), train_cbv with the classic
      `ppo` and `frea` CBVs (finite losses, weights moved, no hand-kernel
-     launch, frea's warning), and eval with the `expert_disturb` ego.
+     launch, frea's warning), and eval with the `expert_disturb` ego;
+ 17. `--mode collect_data`, PlanT's fit, the Pluto checkpoint converter
+     and the public API they brought: `run.collect_episode` at the bench
+     configuration (pdm_lite, rift_pluto on legacy tokens, no walkers or
+     statics, 3 CBVs) for 80 ticks into a CollectBuffer (exact launch
+     counts, one frame a tick, the last frame the returned state's bits,
+     env-steps/s beside phase 16's per-tick eval); PlanT's dataset built
+     on the card from the frames (768 samples); PlanT_medium's fit (f32,
+     12 steps of 64: 8 attention launches a step and no other) against the
+     same fit through the plain versions (first-step gradients 1e-4, each
+     step's loss 1e-4 relative), then its npz reloaded strictly (the same
+     waypoints, bit for bit); a Lightning checkpoint fabricated here
+     (fake_pluto_state_dict) through `load_pretrained_pluto` into a
+     full-width `PlutoModel(points_norm="none")`: the PointNet kernel with
+     `has_ln = 0` against its plain version at the reference-line and
+     legacy map-polygon shapes (1e-4, whole-masked rows 0) and timed, the
+     legacy eval act with exact launches, the f32 act through kernels vs
+     plain versions (1e-3); `grpo_advantage` on one CBV against its row of
+     the batched evaluator (1e-5; one re-tracking and one reference-line
+     launch), a train act with `adv_debug` (advantages and returns bit
+     for bit, finite `dbg_*`), and `init_sim_state` on CUDA.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -1816,6 +1837,134 @@ def fields_apart(torch, a, b, prefix=""):
     return names
 
 
+def fake_pluto_state_dict(dim=DIM, enc_depth=4, dec_depth=4):
+    """A reference PlanningModel state dict (pluto_model.py and its modules:
+    the key names and shapes of tests/test_convert.py's
+    fake_reference_state_dict), numpy only, each tensor seeded by its key."""
+    import zlib
+
+    import numpy as np
+
+    sd = {}
+    rng = lambda key: np.random.default_rng(zlib.crc32(key.encode()))
+    normal = lambda key, shape, scale: rng(key).normal(size=shape, scale=scale).astype(np.float32)
+
+    def linear(key, cin, cout, scale=0.02):
+        sd[f"{key}.weight"] = normal(key, (cout, cin), scale)
+        sd[f"{key}.bias"] = np.zeros(cout, np.float32)
+
+    def ln(key, d):
+        sd[f"{key}.weight"] = np.ones(d, np.float32)
+        sd[f"{key}.bias"] = np.zeros(d, np.float32)
+
+    def bn(key, d):
+        ln(key, d)
+        sd[f"{key}.running_mean"] = normal(key, d, 0.1)
+        sd[f"{key}.running_var"] = np.ones(d, np.float32)
+        sd[f"{key}.num_batches_tracked"] = np.asarray(1)
+
+    def fourier(key, c, f=64):
+        sd[f"{key}.freqs.weight"] = normal(key, (c, f), 1.0)
+        for i in range(c):
+            linear(f"{key}.mlps.{i}.0", 2 * f + 1, dim)
+            ln(f"{key}.mlps.{i}.1", dim)
+            linear(f"{key}.mlps.{i}.3", dim, dim)
+        ln(f"{key}.to_out.0", dim)
+        linear(f"{key}.to_out.2", dim, dim)
+
+    def mlp_layer(key, cin, hidden, cout):
+        linear(f"{key}.mlp.0", cin, hidden)
+        ln(f"{key}.mlp.1", hidden)
+        linear(f"{key}.mlp.3", hidden, cout)
+
+    def points_encoder(key, cin):
+        linear(f"{key}.first_mlp.0", cin, 128)
+        bn(f"{key}.first_mlp.1", 128)
+        linear(f"{key}.first_mlp.3", 128, 256)
+        linear(f"{key}.second_mlp.0", 512, 256)
+        bn(f"{key}.second_mlp.1", 256)
+        linear(f"{key}.second_mlp.3", 256, dim)
+
+    def mha(key, d=dim):
+        sd[f"{key}.in_proj_weight"] = normal(key + ".in", (3 * d, d), 0.02)
+        sd[f"{key}.in_proj_bias"] = np.zeros(3 * d, np.float32)
+        linear(f"{key}.out_proj", d, d)
+
+    def conv(key, cin, cout, bias=True):
+        sd[f"{key}.weight"] = normal(key, (cout, cin, 3), 0.05)
+        if bias:
+            sd[f"{key}.bias"] = np.zeros(cout, np.float32)
+
+    hist = "agent_encoder.history_encoder"
+    fourier("pos_emb", 3)
+    conv(f"{hist}.embed.proj", 9, 32)
+    for level, (c, heads, k) in enumerate(((32, 2, 3), (64, 4, 3), (128, 8, 5))):
+        for i in range(2):
+            key = f"{hist}.levels.{level}.blocks.{i}"
+            ln(f"{key}.norm1", c)
+            sd[f"{key}.attn.qkv.weight"] = normal(key + ".qkv", (3 * c, c), 0.02)
+            sd[f"{key}.attn.qkv.bias"] = np.zeros(3 * c, np.float32)
+            sd[f"{key}.attn.rpb"] = normal(key + ".rpb", (heads, 2 * k - 1), 0.02)
+            linear(f"{key}.attn.proj", c, c)
+            ln(f"{key}.norm2", c)
+            linear(f"{key}.mlp.fc1", c, 3 * c)
+            linear(f"{key}.mlp.fc2", 3 * c, c)
+        ln(f"{hist}.norm{level}", c)
+        if level < 2:
+            conv(f"{hist}.levels.{level}.downsample.reduction", c, 2 * c, bias=False)
+            ln(f"{hist}.levels.{level}.downsample.norm", 2 * c)
+    for j, d in enumerate((32, 64, 128)):
+        conv(f"{hist}.lateral_convs.{j}", d, 128)
+    conv(f"{hist}.fpn_conv", 128, 128)
+    for i in range(6):
+        linear(f"agent_encoder.ego_state_emb.linears.{i}", 1, dim)
+    mha("agent_encoder.ego_state_emb.attn")
+    for key, shape, scale in (
+        ("agent_encoder.ego_state_emb.pos_embed", (1, 6, dim), 0.02),
+        ("agent_encoder.ego_state_emb.query", (1, 1, dim), 0.02),
+        ("agent_encoder.type_emb.weight", (4, dim), 0.02),
+        ("map_encoder.type_emb.weight", (3, dim), 0.02),
+        ("map_encoder.on_route_emb.weight", (2, dim), 0.02),
+        ("map_encoder.traffic_light_emb.weight", (4, dim), 0.02),
+        ("map_encoder.unknown_speed_emb.weight", (1, dim), 0.02),
+        ("static_objects_encoder.type_emb.weight", (4, dim), 0.01),
+        ("planning_decoder.m_emb", (1, 1, MODES, dim), 0.01),
+        ("planning_decoder.m_pos", (1, MODES, dim), 0.01),
+    ):
+        sd[key] = normal(key, shape, scale)
+    points_encoder("map_encoder.polygon_encoder", 10)
+    fourier("map_encoder.speed_limit_emb", 1)
+    fourier("static_objects_encoder.obj_encoder", 2)
+    for i in range(enc_depth):
+        ln(f"encoder_blocks.{i}.norm1", dim)
+        mha(f"encoder_blocks.{i}.attn")
+        ln(f"encoder_blocks.{i}.norm2", dim)
+        linear(f"encoder_blocks.{i}.mlp.fc1", dim, 4 * dim)
+        linear(f"encoder_blocks.{i}.mlp.fc2", 4 * dim, dim)
+    ln("norm", dim)
+    for name in ("loc", "yaw", "vel"):
+        mlp_layer(f"agent_predictor.{name}_predictor", dim, 2 * dim, 160)
+    fourier("planning_decoder.r_pos_emb", 3)
+    points_encoder("planning_decoder.r_encoder", 6)
+    linear("planning_decoder.q_proj", 2 * dim, dim)
+    linear("planning_decoder.cat_x_proj", 2 * dim, dim)
+    for i in range(dec_depth):
+        key = f"planning_decoder.decoder_blocks.{i}"
+        for n in range(1, 5):
+            ln(f"{key}.norm{n}", dim)
+        for attn in ("r2r_attn", "m2m_attn", "cross_attn"):
+            mha(f"{key}.{attn}")
+        linear(f"{key}.ffn.0", dim, 4 * dim)
+        linear(f"{key}.ffn.3", 4 * dim, dim)
+    for name in ("loc", "yaw", "vel"):
+        mlp_layer(f"planning_decoder.{name}_head", dim, 2 * dim, 160)
+    mlp_layer("planning_decoder.pi_head", dim, dim, 1)
+    linear("hidden_proj.0", dim, dim)
+    linear("hidden_proj.2", dim, dim)
+    mlp_layer("ref_free_decoder", dim, 2 * dim, 320)
+    return sd
+
+
 def per_tick_path(torch, tmap, counters):
     """Phase 16: the per-tick loop (run.run_episode), raw controls, classic
     PPO and train_ego at the bench configuration, legacy tokens and the JAX
@@ -1961,6 +2110,299 @@ def per_tick_path(torch, tmap, counters):
     if not ds:
         raise AssertionError("CLI expert_disturb eval printed no driving score")
     out["cli_expert_disturb_eval"] = ds[0]
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def fit_recorder(torch, model):
+    """Hooks that record a fit's every forward's waypoints and the first
+    optimizer step's gradients: (records, remove)."""
+    rec = {"pred_wp": [], "grads": None}
+    fwd = model.register_forward_hook(
+        lambda mod, args, out: rec["pred_wp"].append(out["pred_wp"].detach().clone()))
+
+    def first_grads(opt, args, kwargs):
+        if rec["grads"] is None:
+            rec["grads"] = [p.grad.detach().clone() for g in opt.param_groups
+                            for p in g["params"]]
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    step = register_optimizer_step_pre_hook(first_grads)
+    return rec, lambda: (fwd.remove(), step.remove())
+
+
+def collect_and_plant(torch, tmap, counters, scenes, plain_versions, kernel_versions,
+                      per_tick_rate):
+    """Phase 17: (a) `run.collect_episode` at the bench configuration
+    (pdm_lite, rift_pluto at full width on legacy tokens, collect's
+    defaults: no walkers or statics, 3 CBVs) for 80 ticks into a
+    CollectBuffer, exact launch counts, one frame a tick, the last frame
+    the returned state's bits, env-steps/s beside phase 16's per-tick eval;
+    (b) the frames stacked as `save` stacks them into PlanT's dataset on
+    the card (12 sample ticks x 64 = 768 samples); (c) PlanT_medium's fit
+    (f32, seeded weights, 1 epoch of 12 steps of 64): 8 attention launches
+    a step and no other, finite losses, every parameter moved, against the
+    same fit through the plain versions (the first step's gradients within
+    1e-4, each step's loss within 1e-4 relative), ms per step of both;
+    (d) the fitted weights through `save_plant_params` and a strict
+    `load_plant_weights`: the same waypoints, bit for bit; (e) a Lightning
+    checkpoint fabricated here through `load_pretrained_pluto` into a
+    full-width `PlutoModel(points_norm="none")`: the PointNet without layer
+    norms (`has_ln = 0`) against its plain version at the reference-line
+    and legacy map-polygon shapes (1e-4, whole-masked rows exactly 0),
+    timed with its bound; the legacy eval act on phase 3's scenes with
+    exact launches; the f32 act through the kernels against the plain
+    versions (1e-3); (f) `grpo_advantage` on one CBV against its row of
+    `grpo_advantage_batched` (one re-tracking and one reference-line
+    launch), a train act with `adv_debug` against one without (advantages
+    and returns bit for bit, finite `dbg_*`), `init_sim_state` on CUDA."""
+    import copy
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from rift_tpu_torch import policies, run
+    from rift_tpu_torch.models.plant import PlanTModel, init_plant_weights, plant_ego_waypoints
+    from rift_tpu_torch.models.plant.train import (
+        fit_plant,
+        load_plant_weights,
+        plant_bc_dataset,
+        save_plant_params,
+    )
+    from rift_tpu_torch.models.pluto import PlutoModel, build_cbv_features, pluto_cbv_act
+    from rift_tpu_torch.models.pluto.convert import load_pretrained_pluto
+    from rift_tpu_torch.models.pluto.policy import _neighbor_states
+    from rift_tpu_torch.ops import points
+    from rift_tpu_torch.rl import control_to_rl_action, evaluator
+    from rift_tpu_torch.rl.collect import CollectBuffer
+    from rift_tpu_torch.scenario import TrafficEnv, cbv_slot_assignment
+    from rift_tpu_torch.sim import init_sim_state
+    from rift_tpu_torch.utils.config import load_config
+    from rift_tpu_torch.utils.params_io import flatten_params, load_jax_params
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_collect")
+    os.makedirs(work, exist_ok=True)
+
+    # (a) collect
+    ticks = 2 * CHUNK
+    env = TrafficEnv(tmap, num_scenarios=S, num_agents=A, max_cbvs=C)
+    ego = policies.PDMLiteEgo(tmap)
+    cbv = policies.RIFTPlutoPolicy(tmap, {**load_config("rift_pluto"), "max_cbvs": C})
+    state0, crit0, spec = env.reset()
+    env.tick = 0
+    run.collect_episode(env, ego, cbv, state0, crit0, spec, 5, CollectBuffer(work))  # warm-up
+    buf = CollectBuffer(work, ego.name, cbv.name)
+    env.tick = 0
+    zero_launches(counters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, crit = run.collect_episode(env, ego, cbv, state0, crit0, spec, ticks, buf)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches["collect"] = read_launches(counters)
+    n = len(buf.frames)
+    if not (n == env.tick == ticks):
+        raise AssertionError(f"collect: {n} frames in {env.tick} ticks, expected {ticks}")
+    check_counts("collect", launches["collect"], act_launches(ticks, legacy=True))
+    last = buf.frames[-1]
+    for k in last:
+        v = (control_to_rl_action(state.control) if k == "rl_action"
+             else getattr(state, k)).cpu().numpy()
+        if not np.array_equal(last[k], v.astype(last[k].dtype)):
+            raise AssertionError(f"collect: the last frame's {k} is not the returned state's")
+    out["collect"] = {"ticks": ticks, "env_steps_per_s": S * ticks / seconds,
+                      "per_tick_eval_env_steps_per_s_phase_16": per_tick_rate,
+                      "cbvs_at_the_end": int(state.is_cbv.sum()), "seconds": seconds}
+
+    # (b) PlanT's dataset on the card, from the frames as `save` stacks them
+    data = {k: np.stack([fr[k] for fr in buf.frames]) for k in buf.frames[0]}
+    data.update({f"static_{k}": v for k, v in buf._static.items()})
+    dataset = plant_bc_dataset(data, pred_len=4, stride=5)
+    samples = len(range(0, ticks - 4 * 5, 5)) * S
+    if tuple(dataset[0].shape) != (samples, PLANT_TOKENS - 1, 7) or not all(
+            torch.isfinite(x).all() for x in dataset):
+        raise AssertionError(f"PlanT dataset: tokens {tuple(dataset[0].shape)}, expected "
+                             f"({samples}, {PLANT_TOKENS - 1}, 7), or non-finite values")
+    del env, ego, cbv
+
+    # (c) PlanT_medium's fit, through the kernels and through the plain versions
+    model = init_plant_weights(PlanTModel(**PLANT_EGO), torch.Generator().manual_seed(0))
+    model.to("cuda")
+    plain_model = copy.deepcopy(model)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    steps = samples // 64
+    # warm-up: one step each way on a copy (the backward's and AdamW's
+    # first-use set-up stays out of the timed fits)
+    first_batch = tuple(x[:64] for x in dataset)
+    for warm in (kernel_versions, plain_versions):
+        warm()
+        try:
+            fit_plant(copy.deepcopy(model), first_batch, epochs=1, batch_size=64)
+        finally:
+            kernel_versions()
+    fits = {}
+    for name, m in (("kernel", model), ("plain", plain_model)):
+        rec, remove = fit_recorder(torch, m)
+        zero_launches(counters)
+        if name == "plain":
+            plain_versions()
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, ep_losses = fit_plant(m, dataset, lr=1e-4, epochs=1, batch_size=64)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3 / steps
+        finally:
+            kernel_versions()
+            remove()
+        launches[f"plant_fit_{name}"] = read_launches(counters)
+        order = np.random.default_rng(0).permutation(samples)
+        step_losses = [
+            (wp - dataset[3][torch.from_numpy(order[b * 64:(b + 1) * 64]).cuda()])
+            .abs().mean().item() for b, wp in enumerate(rec["pred_wp"])]
+        fits[name] = {"ms_per_step": ms, "step_losses": step_losses, "epoch_loss": ep_losses,
+                      "grads": rec["grads"]}
+    check_counts("PlanT fit", launches["plant_fit_kernel"], {
+        **act_launches(0), "fused_attention": PLANT_EGO["num_layers"] * steps})
+    launches["plant_fit"] = launches.pop("plant_fit_kernel")
+    del launches["plant_fit_plain"]
+    kl, pl = fits["kernel"]["step_losses"], fits["plain"]["step_losses"]
+    if not (len(kl) == steps and all(map(math.isfinite, kl))):
+        raise AssertionError(f"PlanT fit: losses {kl}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+    grad_err = max((a - b).abs().max().item()
+                   for a, b in zip(fits["kernel"]["grads"], fits["plain"]["grads"]))
+    unmoved = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
+    if not (loss_rel <= 1e-4 and grad_err <= 1e-4 and not unmoved):
+        raise AssertionError(f"PlanT fit kernel vs plain: losses {loss_rel} relative, first "
+                             f"gradients {grad_err}; parameters unmoved {unmoved}")
+    out["plant_fit"] = {
+        "steps": steps, "batch": 64, "ms_per_step": fits["kernel"]["ms_per_step"],
+        "plain_ms_per_step": fits["plain"]["ms_per_step"], "step_losses": kl,
+        "plain_step_losses": pl, "loss_max_rel_err": loss_rel,
+        "first_step_grad_max_abs_err": grad_err,
+    }
+
+    # (d) the fitted weights through the npz
+    npz = os.path.join(work, "plant_medium.npz")
+    save_plant_params(model, npz)
+    fresh = load_plant_weights(PlanTModel(**PLANT_EGO).to("cuda"), npz)
+    wp, wp_fresh = (plant_ego_waypoints(m, spec, state) for m in (model, fresh))
+    if not torch.equal(wp, wp_fresh):
+        raise AssertionError("PlanT npz: the reloaded model's waypoints differ")
+    out["plant_npz_waypoints"] = list(wp.shape)
+
+    # (e) a Lightning checkpoint through the converter
+    ckpt = os.path.join(work, "pluto_fabricated.ckpt")
+    torch.save({"state_dict": {f"model.{k}": torch.from_numpy(np.asarray(v))
+                               for k, v in fake_pluto_state_dict().items()}}, ckpt)
+    params, model_kw = load_pretrained_pluto(ckpt)
+    flat = flatten_params(params)
+    conv = PlutoModel(encoder_depth=4, decoder_depth=4, **model_kw).eval()
+    load_jax_params(conv, flat)
+    conv32 = PlutoModel(encoder_depth=4, decoder_depth=4, dtype=torch.float32,
+                        **model_kw).eval()
+    load_jax_params(conv32, flat)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    no_ln = {}
+    for key, enc, (N, P, Cin, prefix) in (
+            ("ref_lines", conv.planning_decoder.r_encoder, (S * C * REFS, POINTS, 6, True)),
+            ("legacy_map", conv.MapEncoder_0.PointsEncoder_0, (LEGACY_MAP_ROWS, 20, 10, False))):
+        if enc.has_ln:
+            raise AssertionError(f"converted PointNet {key} has layer norms")
+        x, mask, _ = points_inputs(torch, gen, N, P, Cin, prefix)
+        out_rows = ~mask.any(-1)
+        if key == "legacy_map":
+            out_rows = torch.rand(N, generator=gen, device="cuda") < LEGACY_POLYGONS_OUT
+            mask[out_rows] = False
+        w = enc.weights()
+        got = points.points_encoder(x, mask, w, DIM, has_ln=False)
+        ref = points.points_forward_ref(x, mask, w, has_ln=False)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not (err <= 1e-4 and not got[out_rows].any()):
+            raise AssertionError(f"PointNet has_ln=0 {key}: max err {err} > 1e-4, or a "
+                                 "masked row not 0")
+        wb = [t for i, t in enumerate(w) if i not in (2, 3, 8, 9)]  # no layer-norm reads
+        bound, by = points_bound(x, mask, wb)
+        no_ln[key] = {
+            "ms": cuda_ms(torch, lambda: points.points_encoder(x, mask, w, DIM, has_ln=False)),
+            "plain_ms": cuda_ms(torch, lambda: points.points_forward_ref(x, mask, w, False)),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "timed_work": f"N={N}, P={P}, C={Cin}, {int(out_rows.sum())} rows masked whole, "
+                          "f32, the converted weights",
+        }
+    out["points_no_ln"] = no_ln
+    zero_launches(counters)
+    for st, sp in scenes:
+        act = pluto_cbv_act(conv, tmap, sp, st, max_cbvs=C)
+        if not torch.isfinite(act["traj"]).all():
+            raise AssertionError("converted model: non-finite waypoints")
+    torch.cuda.synchronize()
+    launches["converted_eval_act"] = read_launches(counters)
+    check_counts("converted eval act", launches["converted_eval_act"],
+                 act_launches(len(scenes), legacy=True))
+    st, sp = scenes[0]
+    got = pluto_cbv_act(conv32, tmap, sp, st, max_cbvs=C)
+    plain_versions()
+    try:
+        ref = pluto_cbv_act(conv32, tmap, sp, st, max_cbvs=C)
+    finally:
+        kernel_versions()
+    mask = ref["mask"]
+    conv_err = (got["traj"][mask] - ref["traj"][mask]).abs().max().item()
+    if not (torch.equal(got["mask"], mask) and conv_err <= 1e-3):
+        raise AssertionError(f"converted f32 act: waypoints {conv_err} apart, or masks differ")
+    out["converted_f32_traj_max_abs_err"] = conv_err
+
+    # (f) the single-CBV evaluator, adv_debug, init_sim_state
+    slots = cbv_slot_assignment(st.is_cbv, C)
+    slot = torch.clamp(slots, min=0)
+    scen = torch.arange(S, device="cuda")[:, None].expand(S, C)
+    feats, _ = build_cbv_features(tmap, st, slots, sp)
+    model_in = {g: {k: v.reshape((S * C,) + v.shape[2:]) for k, v in d.items()}
+                if isinstance(d, dict) else d.reshape((S * C,) + d.shape[2:])
+                for g, d in feats.items()}
+    with torch.no_grad():
+        traj = conv32({**model_in, "no_aux": True})["trajectory"]
+    fb = lambda x: x.reshape((S * C,) + x.shape[2:])
+    rl = feats["reference_line"]
+    args = (traj.reshape(S * C, REFS, MODES, -1, 6), fb(rl["valid_mask"]).any(-1),
+            fb(rl["position"]), fb(rl["orientation"]), fb(rl["valid_mask"]),
+            fb(st.pos[scen, slot]), fb(st.heading[scen, slot]), fb(st.speed[scen, slot]),
+            fb(st.shape[scen, slot]), *(fb(x) for x in _neighbor_states(st, scen, slot)))
+    batched = evaluator.grpo_advantage_batched(tmap, *args)
+    b = 5
+    zero_launches(counters)
+    one = evaluator.grpo_advantage(tmap, *(a[b] for a in args))
+    torch.cuda.synchronize()
+    launches["grpo_advantage_one"] = read_launches(counters)
+    check_counts("grpo_advantage on one CBV", launches["grpo_advantage_one"],
+                 {**act_launches(0), "retrack_rollout": 1, "refline_matrices": 1})
+    if not torch.equal(one["valid_mask"], batched["valid_mask"][b]):
+        raise AssertionError("grpo_advantage: the valid mask differs from the batched row")
+    one_err = max((one[k] - batched[k][b]).abs().max().item()
+                  for k in ("advantage", "rollout_return"))
+    if not one_err <= 1e-5:
+        raise AssertionError(f"grpo_advantage: {one_err} from the batched row")
+    out["grpo_advantage_one_vs_batched_max_abs_err"] = one_err
+    plain_act = pluto_cbv_act(conv, tmap, sp, st, max_cbvs=C, train=True)
+    dbg = pluto_cbv_act(conv, tmap, sp, st, max_cbvs=C, train=True, adv_debug=True)
+    dbg_keys = sorted(k for k in dbg if k.startswith("dbg_"))
+    same = all(torch.equal(dbg[k], plain_act[k]) for k in ("advantage", "rollout_return",
+                                                          "adv_valid"))
+    if not (same and len(dbg_keys) == 11
+            and all(torch.isfinite(dbg[k].float()).all() for k in dbg_keys)):
+        raise AssertionError(f"adv_debug: advantages equal {same}, fields {dbg_keys}")
+    out["adv_debug_fields"] = dbg_keys
+    st0 = init_sim_state(S, A)
+    fields = [f.name for f in dataclasses.fields(st0) if f.name != "tracker"]
+    if not all(getattr(st0, f).is_cuda for f in fields):
+        raise AssertionError("init_sim_state: not every field on CUDA")
     out["seconds"] = time.perf_counter() - t0
     return out, launches
 
@@ -2217,6 +2659,15 @@ def main() -> int:
     launches.update(per_tick_launches)
     print(f"# per-tick loop done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
+    # ---- phase 17: collect_data, PlanT's fit, the converter, the public API
+    collect, collect_launches = collect_and_plant(
+        torch, tmap, counters, scenes, plain_versions, kernel_versions,
+        per_tick["per_tick_env_steps_per_s"])
+    launches.update(collect_launches)
+    results["points_encoder"]["no_ln"] = collect.pop("points_no_ln")
+    print(f"# collect, PlanT fit, converter done {time.perf_counter() - t0:.1f}s",
+          file=sys.stderr)
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -2266,6 +2717,7 @@ def main() -> int:
         "route_plant_eval": route,
         "route_cli": rcli,
         "per_tick": per_tick,
+        "collect_and_plant": collect,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

@@ -1,5 +1,5 @@
 """Oriented bounding boxes: corners and the separating-axis overlap test
-(port of rift_tpu/geometry/obb.py: `box_corners`, `obb_overlap`).
+(port of rift_tpu/geometry/obb.py).
 
 Box shapes are [width, length]. Two rectangles overlap iff their
 projections overlap on all four face normals; the closed form needs no
@@ -53,3 +53,18 @@ def obb_overlap(center_a, heading_a, shape_a, center_b, heading_b, shape_b):
         )
         sep = s_k if sep is None else sep | s_k
     return ~sep
+
+
+def obb_overlap_matrix(center_a, heading_a, shape_a, center_b, heading_b, shape_b):
+    """All pairs: boxes a (G, ...) against boxes b (N, ...) -> (G, N) bool."""
+    return obb_overlap(center_a[:, None], heading_a[:, None], shape_a[:, None],
+                       center_b[None, :], heading_b[None, :], shape_b[None, :])
+
+
+def point_in_obb(points, center, heading, shape) -> torch.Tensor:
+    """Point-in-rectangle test, broadcasting; shape = [width, length]."""
+    d = points - center
+    c, s = torch.cos(heading), torch.sin(heading)
+    lon = d[..., 0] * c + d[..., 1] * s
+    lat = -d[..., 0] * s + d[..., 1] * c
+    return (torch.abs(lon) <= 0.5 * shape[..., 1]) & (torch.abs(lat) <= 0.5 * shape[..., 0])

@@ -68,6 +68,11 @@ class TensorMap(TensorDataclass):
     def device(self) -> torch.device:
         return self.centerline.device
 
+    @property
+    def lane_mid(self) -> torch.Tensor:
+        """[L, 2] centerline midpoints (a cheap query key)."""
+        return self.centerline[:, LANE_POINTS // 2]
+
     def lane_point_dist2(self, point: torch.Tensor) -> torch.Tensor:
         """Squared distance from `point` (..., 2) to each lane's nearest
         centerline vertex -> (..., L); invalid lanes +inf. Same expansion
@@ -185,6 +190,10 @@ class TensorMap(TensorDataclass):
         same_sign = (self.lane_id[:, None] * rl) > 0
         pad = rr < 0
         return (same_road & same_sign & ~pad).any(-1) & self.valid
+
+    def lane_frame_speed_limit(self, lane_idx: torch.Tensor) -> torch.Tensor:
+        """The speed limit (m/s) of each lane in `lane_idx`."""
+        return self.speed_limit[lane_idx]
 
 
 def build_tensor_map(

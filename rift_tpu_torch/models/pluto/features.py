@@ -188,6 +188,39 @@ def build_features_for_agents(
     }
 
 
+def build_features_for_agent(
+    tmap: TensorMap,
+    state: SimState,
+    scenario,  # scalar int
+    agent,  # scalar int: the center agent's slot
+    route_mask: torch.Tensor,  # [L] the scenario's ego-route lanes
+    chains_s: torch.Tensor,  # [L, 2, MAX_CHAIN] the scenario's lane chains
+    max_agents: int = 32,
+    max_polygons: int = 64,
+    num_refs: int = 4,
+    radius: float = 120.0,
+    canonical: bool = False,
+):
+    """The feature dict (no batch dim) of one center agent, in its frame:
+    `build_features_for_agents` over a batch of one, with the scenario's
+    route mask and lane chains standing for its spec's rows."""
+    dev = state.pos.device
+    S = state.pos.shape[0]
+    spec_rows = ScenarioSpec(
+        ego_route=None, ego_route_len=None, route_road_ids=None, route_lane_ids=None,
+        ego_target_speed=None, timeout_ticks=None,
+        route_lane_mask=route_mask[None].expand((S,) + route_mask.shape),
+        lane_chains=chains_s[None].expand((S,) + chains_s.shape),
+    )
+    as_index = lambda i: torch.as_tensor(i, device=dev).long().reshape(1)
+    feats = build_features_for_agents(
+        tmap, state, as_index(scenario), as_index(agent), spec_rows, max_agents=max_agents,
+        max_polygons=max_polygons, num_refs=num_refs, radius=radius, canonical=canonical,
+    )
+    return {g: {k: v[0] for k, v in d.items()} if isinstance(d, dict) else d[0]
+            for g, d in feats.items()}
+
+
 def canonical_map_features(tmap: TensorMap):
     """Per-lane polygon features in each lane's own frame: {"feat"
     [L, P, 10], "type" [L], "speed" [L]} (the channel layout MapEncoder

@@ -116,6 +116,7 @@ def pluto_cbv_act(
     topk: int = TOPK,
     canonical: bool = False,
     map_tok: torch.Tensor | None = None,
+    adv_debug: bool = False,
     execute_teacher: bool = False,
 ):
     """Plan all CBVs of all scenarios, on legacy per-CBV tokens (the JAX
@@ -134,19 +135,21 @@ def pluto_cbv_act(
       teacher_traj [S, C, 80, 2]: the train-mode signals, zeros in eval.
     With `execute_teacher` (train mode, the BC pretrain's expert rollouts)
     the CBVs execute the privileged teacher's path: `traj` holds it and
-    `exec_speed` is taken from it. The eval branch runs under
-    inference_mode; the train branch under no_grad, so its features can
-    feed a later fit.
+    `exec_speed` is taken from it. With `adv_debug` (train mode) the
+    evaluator's per-candidate reward attribution is added, each [S, C, R,
+    M]: the `dbg_*` fields of `grpo_advantage_batched(debug=True)`. The
+    eval branch runs under inference_mode; the train branch under no_grad,
+    so its features can feed a later fit.
     """
     _check_device(model, tmap)
     mode = torch.no_grad() if train else torch.inference_mode()
     with mode:
         return _act(model, tmap, spec, state, max_cbvs, train, topk, canonical, map_tok,
-                    execute_teacher)
+                    adv_debug, execute_teacher)
 
 
 def _act(model, tmap, spec, state, max_cbvs, train, topk, canonical, map_tok,
-         execute_teacher):
+         adv_debug, execute_teacher):
     S, A = state.alive.shape
     cbv_slots = cbv_slot_assignment(state.is_cbv, max_cbvs)
     C = cbv_slots.shape[1]
@@ -192,7 +195,8 @@ def _act(model, tmap, spec, state, max_cbvs, train, topk, canonical, map_tok,
     }
     R, M = out["probability"].shape[1:3]
     if train:
-        result.update(_train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid))
+        result.update(_train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid,
+                                     adv_debug))
         if execute_teacher:
             # expert rollouts: the CBVs execute the teacher path, so cloning
             # sees the expert's state visitation
@@ -224,9 +228,9 @@ def _implied_speed(wp):
     return step_d.mean(-1) / 0.1
 
 
-def _train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid):
+def _train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid, adv_debug):
     """The train branch's executed-transition signals and the GRPO
-    advantage of every candidate."""
+    advantage of every candidate (with `adv_debug`, its `dbg_*` fields)."""
     S, C = slot.shape
     R, M = out["probability"].shape[1:3]
     dev = slot.device
@@ -271,10 +275,12 @@ def _train_signals(tmap, state, feats, out, wp, scen, slot, slot_valid):
         fb(state.speed[scen, slot]),
         fb(state.shape[scen, slot]),
         *[fb(x) for x in nbr],
+        debug=adv_debug,
     )
     adv = {k: v.reshape((S, C) + v.shape[1:]) for k, v in adv.items()}
     res["old_logits"] = out["probability"].reshape(S, C, R, M)
     res["advantage"] = adv["advantage"]
     res["adv_valid"] = adv["valid_mask"] & slot_valid[..., None, None]
     res["rollout_return"] = adv["rollout_return"]
+    res.update({k: v for k, v in adv.items() if k.startswith("dbg_")})
     return res

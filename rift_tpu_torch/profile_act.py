@@ -1,7 +1,8 @@
-"""Where the time of one planner act step, one fine-tune step or one
-closed-loop tick goes on the card.
+"""Where the time of one planner act step, one fine-tune step, one closed-loop
+tick or one step of PlanT's behaviour-cloning fit goes on the card.
 
-    python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick] [--steps 5]
+    python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick|plant_fit]
+        [--steps 5]
         [--legacy] [--ego rule|pdm|expert|plant|ppo] [--recog rule|attention] [--routes]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
@@ -19,6 +20,9 @@ attention` ranked by chip_smoke's PlanT recognizer) or an eval tick (the
 act, then the env step). The `plant` ego is chip_smoke's PlanT_medium;
 the `ppo` ego (seeded weights, deterministic) drives the ego by raw
 controls (env_step's `ego_ctrl`), its act inside each traced call.
+`plant_fit` traces `plant_bc_step` of PlanT_medium (f32, chip_smoke's
+seeded weights, AdamW) on a batch of the scene's S = 64 token sets with
+seeded waypoint labels, as PlanT's fit runs it.
 Prints one JSON line: host wall time per call, device kernel time per call,
 the device's idle share, the number of kernel launches per call, the
 launches per call of each hand-written kernel (its wrapper's counter) and
@@ -38,17 +42,18 @@ import time
 import torch
 
 
-# each hand-written kernel's __global__ function in csrc/
+# each hand-written kernel's __global__ functions in csrc/
 HAND_KERNELS = {
-    "fused_attention": "attention_kernel", "points_encoder": "points_kernel",
-    "retrack_rollout": "retrack_kernel", "refline_matrices": "refline_kernel",
-    "local_stage": "stage_kernel", "history_encoder": "encoder_kernel",
+    "fused_attention": ("attention_kernel", "attention_kernel_dh64"),
+    "points_encoder": ("points_kernel",), "retrack_rollout": ("retrack_kernel",),
+    "refline_matrices": ("refline_kernel",), "local_stage": ("stage_kernel",),
+    "history_encoder": ("encoder_kernel",),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("eval", "train", "fit", "world", "tick"),
+    ap.add_argument("--mode", choices=("eval", "train", "fit", "world", "tick", "plant_fit"),
                     default="eval")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
@@ -135,6 +140,18 @@ def main() -> int:
         for n, p in model.named_parameters():  # frozen, as fit() holds them
             p.requires_grad_("pi_head" in n)
         act = lambda: train_step(model, opt, rift_loss_fn, batch, cfg.lr, cfg)
+    if args.mode == "plant_fit":
+        from rift_tpu_torch.models.plant import PlanTModel, build_plant_tokens
+        from rift_tpu_torch.models.plant import init_plant_weights
+        from rift_tpu_torch.models.plant.train import ADAMW, plant_bc_step
+
+        plant = init_plant_weights(PlanTModel(**cs.PLANT_EGO), torch.Generator().manual_seed(0))
+        plant.to("cuda")
+        popt = torch.optim.AdamW(plant.parameters(), lr=1e-4, **ADAMW)
+        tokens = build_plant_tokens(spec, state)
+        labels = torch.randn((S, plant.pred_len, 2),
+                             generator=torch.Generator().manual_seed(1)).to("cuda")
+        act = lambda: plant_bc_step(plant, popt, *tokens, labels)
     for _ in range(3):
         act()
     torch.cuda.synchronize()
@@ -152,9 +169,12 @@ def main() -> int:
     def dev_us(e):  # the attribute's name changed across torch versions
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
+    # device kernels; the GPU-side spans of annotations (the optimizer's
+    # `Optimizer.step#...`) cover kernels already counted, and gaps
     kernels = [
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -163,9 +183,10 @@ def main() -> int:
         rec[1] += 1
     device_ms = sum(v[0] for v in by_name.values()) / args.steps
     hand_ms = {
-        name: sum(dev_us(e) for e in kernels if f"{symbol}<" in e.name or
-                  f"{symbol}(" in e.name) / 1e3 / args.steps
-        for name, symbol in HAND_KERNELS.items()
+        name: sum(dev_us(e) for e in kernels
+                  if any(f"{sym}<" in e.name or f"{sym}(" in e.name for sym in symbols))
+        / 1e3 / args.steps
+        for name, symbols in HAND_KERNELS.items()
     }
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     print(json.dumps({

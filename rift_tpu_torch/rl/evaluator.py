@@ -1,7 +1,8 @@
 """Trajectory evaluator: candidate rollout, dense reward and GRPO advantage
 (port of rift_tpu/rl/evaluator.py: the constants, `dense_reward`,
-`executed_cbv_reward`, `rollout_candidates`, `derive_kinematics`,
-`forecast_neighbors` and `grpo_advantage_batched`).
+`sparse_reward`, `executed_cbv_reward`, `rollout_candidates`,
+`derive_kinematics`, `forecast_neighbors`, `ref_line_matrices`,
+`grpo_advantage_batched` and its single-CBV wrapper `grpo_advantage`).
 
     candidates [B, R, M, T, 6] (local frame)
       -> ref-line distance and angle          (ops/refline.py, kernel 4)
@@ -55,9 +56,10 @@ REWARD_PARAMS = dict(
 )
 
 def dense_reward(delta_dis, delta_angle, speed, acc, angular_vel, angular_acc,
-                 collision, offroad, p=REWARD_PARAMS):
+                 collision, offroad, p=REWARD_PARAMS, components=False):
     """The RIFT dense reward, elementwise over broadcastable tensors;
-    delta_dis and delta_angle are absolute values."""
+    delta_dis and delta_angle are absolute values. With `components`, a
+    dict of its seven terms instead of their sum (diagnostics)."""
     cos_a = torch.cos(delta_angle)
     r_collision = -(p["alpha_collision"] + torch.abs(speed)) * collision
     r_offroad = -p["alpha_boundary"] * offroad
@@ -77,7 +79,17 @@ def dense_reward(delta_dis, delta_angle, speed, acc, angular_vel, angular_acc,
     )
     moving = (torch.abs(speed) > 0) | (torch.abs(acc) > 0)
     r_time = -p["alpha_timestep"] * moving.float()
+    if components:
+        return {
+            "collision": r_collision, "offroad": r_offroad, "comfort": r_comfort,
+            "align": r_align, "center": r_center, "velocity": r_velocity, "time": r_time,
+        }
     return r_collision + r_offroad + r_comfort + r_align + r_center + r_velocity + r_time
+
+
+def sparse_reward(collision, offroad, alpha_collision=15.0, alpha_boundary=15.0):
+    """The sparse infraction reward (reward_model.py:60-85)."""
+    return -alpha_collision * collision - alpha_boundary * offroad
 
 
 def executed_cbv_reward(tmap: TensorMap, state, slots):
@@ -189,6 +201,22 @@ def forecast_neighbors(pos, heading, speed, control, shape, valid,
     return centers, headings, shapes, valid
 
 
+def ref_line_matrices(cand_pos, cand_heading, ref_pos, ref_heading, ref_valid):
+    """Signed lateral offset and heading error of each candidate point
+    (cand_pos [R, M, T, 2], cand_heading [R, M, T], local frame) against
+    its own reference line (ref_pos [R, Nr, 2], ref_heading [R, Nr],
+    ref_valid [R, Nr]) -> (delta_dis, delta_angle) [R, M, T]: one launch of
+    the reference-line kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    R, M, T, _ = cand_pos.shape
+    dd, da = refline_matrices(
+        cand_pos.reshape(R, M * T, 2).contiguous(),
+        cand_heading.reshape(R, M * T).contiguous(),
+        ref_pos.contiguous(), ref_heading.contiguous(), ref_valid.contiguous(),
+    )
+    return dd.reshape(R, M, T), da.reshape(R, M, T)
+
+
 def grpo_advantage_batched(
     tmap: TensorMap,
     trajectories,  # [B, R, M, T, 6] local-frame model output
@@ -208,12 +236,17 @@ def grpo_advantage_batched(
     nbr_valid,  # [B, N]
     dt: float = 0.1,
     num_frames: int = NUM_FRAMES,
+    debug: bool = False,
 ):
     """Group-relative advantage of every candidate of B CBVs. The
     re-tracking runs once over the flattened [B*R*M] candidates (one
     kernel launch) and the ref-line matrices once over the [B*R] (CBV,
     line) pairs (one kernel launch). Returns {"advantage", "valid_mask",
-    "rollout_return"} each [B, R, M]."""
+    "rollout_return"} each [B, R, M]; with `debug` also each candidate's
+    discounted sum of every reward term (`dbg_collision`, `dbg_offroad`,
+    `dbg_comfort`, `dbg_align`, `dbg_center`, `dbg_velocity`, `dbg_time`)
+    and its rollout's `dbg_collided`, `dbg_offroad_frac`, `dbg_mean_speed`
+    and `dbg_mean_absdd`."""
     B, R, M = trajectories.shape[:3]
     G = R * M
     Tn = num_frames
@@ -295,8 +328,36 @@ def grpo_advantage_batched(
     mean = torch.sum(ret * cand_valid, -1, keepdim=True) / n
     var = torch.sum((ret - mean) ** 2 * cand_valid, -1, keepdim=True) / n
     adv = (ret - mean) / (torch.sqrt(var) + 1e-5)
-    return {
+    out = {
         "advantage": (adv * cand_valid).reshape(B, R, M),
         "valid_mask": cand_valid.reshape(B, R, M),
         "rollout_return": (ret * cand_valid).reshape(B, R, M),
     }
+    if debug:
+        comps = dense_reward(
+            delta_dis, delta_angle, roll_speed, roll_acc, roll_yaw_rate, roll_yaw_acc,
+            collision.float(), offroad.float(), components=True,
+        )
+        for k, v in comps.items():
+            out[f"dbg_{k}"] = torch.sum(v * ((~collided_before) * discount),
+                                        dim=-1).reshape(B, R, M)
+        out["dbg_collided"] = collision.any(-1).reshape(B, R, M)
+        out["dbg_offroad_frac"] = offroad.float().mean(-1).reshape(B, R, M)
+        out["dbg_mean_speed"] = roll_speed.mean(-1).reshape(B, R, M)
+        out["dbg_mean_absdd"] = delta_dis.mean(-1).reshape(B, R, M)
+    return out
+
+
+def grpo_advantage(tmap: TensorMap, trajectories, r_valid, ref_pos, ref_heading,
+                   ref_point_valid, center_pos, center_heading, center_speed, center_shape,
+                   nbr_pos, nbr_heading, nbr_speed, nbr_control, nbr_shape, nbr_valid,
+                   dt: float = 0.1, num_frames: int = NUM_FRAMES):
+    """`grpo_advantage_batched` for one CBV (B = 1): trajectories [R, M, T,
+    6], r_valid [R], ref_* [R, Nr(, 2)], center_* [2] or [], nbr_* [N, ...].
+    Returns {"advantage", "valid_mask", "rollout_return"} each [R, M]."""
+    args = (trajectories, r_valid, ref_pos, ref_heading, ref_point_valid, center_pos,
+            center_heading, center_speed, center_shape, nbr_pos, nbr_heading, nbr_speed,
+            nbr_control, nbr_shape, nbr_valid)
+    out = grpo_advantage_batched(tmap, *(torch.as_tensor(a)[None] for a in args), dt=dt,
+                                 num_frames=num_frames)
+    return {k: v[0] for k, v in out.items()}

@@ -1,12 +1,16 @@
 """CLI entry: mode dispatch over the policy zoos (port of rift_tpu/run.py,
-the modes `eval`, `train_cbv` and `train_ego` on the synthetic towns and
-on route files).
+the modes `eval`, `train_cbv`, `train_ego` and `collect_data` on the
+synthetic towns and on route files).
 
-  eval       closed-loop benchmark and leaderboard statistics
-  train_cbv  fine-tune the CBV policy: buffer full -> fit -> the updated
-             weights drive the next ticks (the Pluto family); GAE PPO
-             rounds at each episode's end (the classic rl CBVs)
-  train_ego  PPO on the rl-type ego (`ppo`) through env_step's `ego_ctrl`
+  eval          closed-loop benchmark and leaderboard statistics
+  train_cbv     fine-tune the CBV policy: buffer full -> fit -> the updated
+                weights drive the next ticks (the Pluto family); GAE PPO
+                rounds at each episode's end (the classic rl CBVs)
+  train_ego     PPO on the rl-type ego (`ppo`) through env_step's `ego_ctrl`
+  collect_data  every tick's SimState into `<out_dir>/collect_data/<tag>/
+                <ego>_<cbv>.hdf5` (rl/collect.py; needs h5py), the dataset of
+                PlanT's behaviour cloning (models/plant/train.py); with
+                `--resume` an existing file is kept and nothing runs
 
     python -m rift_tpu_torch.run --mode eval --ego_cfg pdm_lite \\
         --cbv_cfg rift_pluto --num_scenario 4 --num_episodes 3 --town grid
@@ -40,11 +44,11 @@ observer that collects the classic PPO transitions. Each invocation opens
 a run directory under `<out_dir>/<mode>/<tag>/runs` (utils/tracking.py);
 `RIFT_TPU_TIMING=1` prints each episode's phase times. As in the JAX CLI,
 `--seed` seeds the scenes and the recognizer, not the policies (their
-configs' `seed`), and `--resume` outside eval restores nothing: the run
-starts again at episode 0. Everything runs on CUDA unless `--device cpu`.
-Not ported yet (ROADMAP.md): the mode collect_data, `--render`,
-`--repetitions` (parsed, and read by neither CLI), and the E2E egos
-(asking for one raises, naming the ported egos).
+configs' `seed`), and `--resume` outside eval and collect_data restores
+nothing: the run starts again at episode 0. Everything runs on CUDA unless
+`--device cpu`. Not ported yet (ROADMAP.md): `--render`, `--repetitions`
+(parsed, and read by neither CLI), and the E2E egos (asking for one
+raises, naming the ported egos).
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from .models.plant import PlanTModel, init_plant_weights
 from .models.plant.train import load_plant_weights
 from .policies import CBV_POLICY_LIST, EGO_POLICY_LIST
 from .rl.classic import GOAL_RADIUS, cbv_full_train_reward, ego_shaped_reward
+from .rl.collect import CollectBuffer
 from .rl.losses import gae
 from .rollout import flush_pending, rollout_chunk, tick_extras
 from .scenario import TrafficEnv
@@ -271,6 +276,26 @@ def train_classic_cbv_episode(env, ego, cbv, state, crit, spec, max_ticks):
     return state, crit, cbv.train_round(batch) if n > 0 else []
 
 
+def collect_episode(env, ego, cbv, state, crit, spec, max_ticks, buffer):
+    """The per-tick loop in eval mode, storing every tick's state in
+    `buffer` (reference collect_buffer.py:130). Returns (state, crit).
+
+    The ego route is the episode's static: `set_static` replaces it every
+    episode, so a file of several episodes keeps the last one's route
+    only, while the frames of all episodes follow one another in one
+    stream. PlanT's dataset (models/plant/train.py) then builds earlier
+    episodes' route tokens from that route and takes labels across the
+    episode resets. The JAX CLI does the same; the port keeps it for
+    parity (ROADMAP.md §3)."""
+    buffer.set_static({"ego_route": spec.ego_route, "ego_route_len": spec.ego_route_len})
+
+    def on_tick(prev_state, state, crit_now, ego_out, cbv_out):
+        buffer.store(state)
+
+    return run_episode(env, ego, cbv, state, crit, spec, max_ticks, train=False,
+                       on_tick=on_tick)
+
+
 def _buf_size(cbv) -> int:
     buf = getattr(cbv, "buffer", None)
     return 0 if buf is None else int(buf.size)
@@ -300,7 +325,8 @@ def _check_new_samples(cbv, pre_size: int, ep: int, streak: int = 0) -> int:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("rift_tpu_torch")
-    p.add_argument("--mode", default="eval", choices=["eval", "train_cbv", "train_ego"])
+    p.add_argument("--mode", default="eval",
+                   choices=["eval", "train_cbv", "train_ego", "collect_data"])
     p.add_argument("--ego_cfg", default="pdm_lite")
     p.add_argument("--cbv_cfg", default="rift_pluto")
     p.add_argument("--num_scenario", type=int, default=4)
@@ -468,6 +494,12 @@ def main(argv=None):
         start_ep = stats.resume_index // S
         if loader is not None:
             loader.configs = loader.configs[stats.resume_index:]
+    collect_buffer = None
+    if args.mode == "collect_data":
+        collect_buffer = CollectBuffer(out_dir, ego.name, cbv.name)
+        if collect_buffer.exists() and args.resume:
+            print(f"collect_data: {collect_buffer.h5_path} exists, skipping")
+            return collect_buffer.h5_path
 
     def reset_env():
         """A new episode: (state, crit, spec, the batch's real route configs
@@ -535,6 +567,9 @@ def main(argv=None):
             if ep_losses:
                 print(f"episode {ep}: classic CBV PPO losses {ep_losses[:3]}...")
             cbv.save(ckpt, ep)
+        elif collect_buffer is not None:
+            state, crit = collect_episode(env, ego, cbv, state, crit, spec, args.max_ticks,
+                                          collect_buffer)
         elif can_fuse:
             pre_size = _buf_size(cbv)
             fit_s = 0.0
@@ -592,6 +627,11 @@ def main(argv=None):
             for k in t_phase:
                 t_phase[k] = 0.0
 
+    if collect_buffer is not None:
+        path = collect_buffer.save()
+        print(f"collect_data: wrote {path}")
+        track.finish()
+        return path
     if args.save_pretrain and hasattr(cbv, "save_pretrain"):
         cbv.save_pretrain(args.save_pretrain)
         print(f"saved pretrain {args.save_pretrain}")

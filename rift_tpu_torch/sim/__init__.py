@@ -8,7 +8,7 @@ from .pid import (
     pid_step,
     track_step,
 )
-from .state import HISTORY_STEPS, ScenarioSpec, SimState, init_sim_state_host
+from .state import HISTORY_STEPS, ScenarioSpec, SimState, init_sim_state, init_sim_state_host
 from .world import cbv_reached_goal, step
 
 __all__ = [
@@ -26,5 +26,6 @@ __all__ = [
     "HISTORY_STEPS",
     "ScenarioSpec",
     "SimState",
+    "init_sim_state",
     "init_sim_state_host",
 ]

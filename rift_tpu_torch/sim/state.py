@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.tensors import TensorDataclass
 from .pid import PID_WINDOW, PIDState, TrackerState
 
@@ -112,6 +113,12 @@ class ScenarioSpec(TensorDataclass):
     # per-scenario sensor visibility factor from route weather (fog/rain),
     # consumed by ego/sensors.py render_cameras; None -> clear weather
     visibility: torch.Tensor | None = None  # [S] float32 in [0.2, 1]
+
+
+def init_sim_state(num_scenarios: int, num_agents: int, rng=None, device=None) -> SimState:
+    """The initial state, built on the host and moved in one pass to the
+    device that `resolve_device(device)` gives (CUDA unless asked)."""
+    return init_sim_state_host(num_scenarios, num_agents, rng).to(resolve_device(device))
 
 
 def init_sim_state_host(
