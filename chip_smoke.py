@@ -9,7 +9,8 @@ defaults: legacy (per-CBV) tokens, the PDM-Lite ego, walkers and statics;
 then route files on route towns with the PlanT_medium ego and attention
 recognition; then the per-tick loop with raw controls, classic PPO and
 train_ego; then data collection, PlanT's behaviour-cloning fit and the
-Pluto checkpoint converter.
+Pluto checkpoint converter; then the E2E camera egos (vad, uniad,
+sparsedrive), their behaviour-cloning fit and their CLI.
 
     python3 chip_smoke.py
 
@@ -154,7 +155,23 @@ Phases (any failure raises and exits non-zero):
      plain versions (1e-3); `grpo_advantage` on one CBV against its row of
      the batched evaluator (1e-5; one re-tracking and one reference-line
      launch), a train act with `adv_debug` (advantages and returns bit
-     for bit, finite `dbg_*`), and `init_sim_state` on CUDA.
+     for bit, finite `dbg_*`), and `init_sim_state` on CUDA;
+ 18. the E2E camera egos (seeded weights at the default width: dim 64, 4
+     heads, 6 cameras of 24 x 48 x 8, a 16 x 16 BEV) at the bench
+     configuration with the JAX CLI's eval defaults (rift_pluto on legacy
+     tokens, 2 CBVs, 2 walkers and 2 statics): each variant's eval for 40
+     ticks on the fused loop, exact hand-kernel launches (the CBVs' acts;
+     the E2E ego launches none), env-steps/s beside phase 12's PDM-Lite
+     eval; `vad` on the per-tick loop, bit-equal to the fused one; each
+     variant's forward on the card against the same model on the CPU on
+     one tick's cameras (`pred_wp`, `det_boxes`, `det_scores` within
+     1e-4), the ego's ms, kernels and device ms per tick (torch.profiler);
+     VAD's behaviour-cloning fit at S=8 from 40 PDM ticks (160 samples on
+     the card, 2 epochs of 10 steps: ms per step, the second epoch's mean
+     loss below the first's); `run.main --mode train_ego --ego_cfg
+     sparsedrive` at S=8, then `--mode eval --ego_weights` its
+     `sparsedrive_bc.npz` at S=64 (exact launches, the ego's weights the
+     file's).
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -2407,6 +2424,187 @@ def collect_and_plant(torch, tmap, counters, scenes, plain_versions, kernel_vers
     return out, launches
 
 
+E2E_VARIANTS = ("vad", "uniad", "sparsedrive")
+E2E_BC_S = 8  # scenarios of phase 18's behaviour-cloning rollouts
+
+
+def device_profile(torch, fn, calls=3):
+    """(CUDA kernels launched, their device ms) per call of `fn`, by
+    torch.profiler; "not measured" for both when it traces none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: (getattr(e, "device_time_total", None)  # noqa: E731
+                        or getattr(e, "cuda_time_total", 0))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return "not measured", "not measured"
+    return len(kernels) / calls, sum(dev_us(e) for e in kernels) / 1e3 / calls
+
+
+def e2e_path(torch, tmap, counters, pdm_eval_rate):
+    """Phase 18: the E2E camera egos (vad, uniad, sparsedrive; seeded
+    weights at the default width) at the bench configuration with the JAX
+    CLI's eval defaults (rift_pluto on legacy tokens, 2 CBVs, 2 walkers and
+    2 statics): (a) each variant's eval for 40 ticks on the fused loop
+    (`run.run_episode_fused`), exact hand-kernel launches (the CBVs' legacy
+    acts; the E2E ego launches none), env-steps/s beside phase 12's PDM-Lite
+    eval; `vad` on the per-tick loop (`run.run_episode`) too, every SimState
+    and criteria field bit-equal to the fused loop's; (b) each variant's
+    forward on one tick's cameras on the card against the same model's on
+    the CPU (`pred_wp`, `det_boxes`, `det_scores` within 1e-4), the ego's
+    waypoints per tick (cameras and model) timed and profiled: kernels
+    launched and device ms; (c) VAD's behaviour-cloning fit at S=8 from 40
+    ticks of the PDM expert (160 samples, the dataset on the card), 2
+    epochs of 10 steps: ms per step, the second epoch's mean loss below
+    the first's; (d) `run.main --mode train_ego --ego_cfg sparsedrive` at
+    S=8 (its `sparsedrive_bc.npz`), then `--mode eval --ego_cfg
+    sparsedrive --ego_weights` it at S=64 for 40 ticks: exact launches,
+    the ego's weights the file's."""
+    import copy
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from rift_tpu_torch import policies, run
+    from rift_tpu_torch.models.e2e import E2EModel, e2e_inputs
+    from rift_tpu_torch.models.e2e import init_e2e_weights
+    from rift_tpu_torch.models.e2e.train import bc_dataset, bc_fit, bc_rollout
+    from rift_tpu_torch.rollout import ego_waypoints
+    from rift_tpu_torch.scenario import TrafficEnv
+    from rift_tpu_torch.utils.config import load_config
+    from rift_tpu_torch.utils.params_io import flatten_params, jax_flat_params, load_params_npz
+
+    t0 = time.perf_counter()
+    out, launches = {"pdm_lite_eval_env_steps_per_s_phase12": pdm_eval_rate}, {}
+    env = TrafficEnv(tmap, num_scenarios=S, num_agents=A, max_cbvs=2, num_walkers=2,
+                     num_statics=2)
+    cbv = policies.RIFTPlutoPolicy(tmap, {**load_config("rift_pluto"), "max_cbvs": 2})
+    state0, crit0, spec = env.reset()
+
+    def loop(fn, ego, ticks=CHUNK):
+        env.tick = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fn(env, ego, cbv, state0, crit0, spec, ticks)
+        torch.cuda.synchronize()
+        return res, ticks * S / (time.perf_counter() - t1)
+
+    imgs, target, speed = e2e_inputs(spec, state0, tmap)
+    for v in E2E_VARIANTS:
+        ego = policies.EGO_POLICY_LIST[v](tmap)
+        loop(run.run_episode_fused, ego, ticks=20)  # warm-up
+        zero_launches(counters)
+        (st, cr), rate = loop(run.run_episode_fused, ego)
+        launches[f"e2e_{v}_eval"] = read_launches(counters)
+        check_counts(f"{v} eval", launches[f"e2e_{v}_eval"], act_launches(CHUNK, legacy=True))
+        res = {"env_steps_per_s": rate, "driving_ticks": CHUNK,
+               "ego_moved_m_median": torch.linalg.norm(
+                   st.pos[:, 0] - state0.pos[:, 0], dim=-1).median().item()}
+        if not math.isfinite(res["ego_moved_m_median"]):
+            raise AssertionError(f"{v} eval: non-finite ego positions")
+        if v == "vad":
+            zero_launches(counters)
+            (pst, pcr), res["per_tick_env_steps_per_s"] = loop(run.run_episode, ego)
+            launches["e2e_vad_eval_per_tick"] = read_launches(counters)
+            check_counts("vad per-tick eval", launches["e2e_vad_eval_per_tick"],
+                         act_launches(CHUNK, legacy=True))
+            apart = fields_apart(torch, st, pst) + fields_apart(torch, cr, pcr, "crit.")
+            if apart:
+                raise AssertionError(f"vad: per-tick vs fused loop fields {apart} differ")
+            res["per_tick_vs_fused_fields_apart"] = apart
+
+        # (b) the forward on the card against the CPU, one tick's inputs
+        with torch.no_grad():
+            got = ego.model(imgs, target, speed)
+            ref = copy.deepcopy(ego.model).cpu()(imgs.cpu(), target.cpu(), speed.cpu())
+        err = {k: (got[k].cpu() - ref[k]).abs().max().item()
+               for k in ("pred_wp", "det_boxes", "det_scores")}
+        if not max(err.values()) <= 1e-4:
+            raise AssertionError(f"{v}: card forward vs CPU {err}")
+        res["card_vs_cpu_max_abs_err"] = err
+        wp = lambda ego=ego: ego_waypoints("e2e", tmap, spec, state0, ego.model)  # noqa: E731
+        zero_launches(counters)
+        res["ego_ms_per_tick"] = time_calls(torch, wp, 5, warmup=2)
+        res["ego_kernels_per_tick"], res["ego_device_ms_per_tick"] = device_profile(torch, wp)
+        if any(read_launches(counters).values()):
+            raise AssertionError(f"{v}: the E2E ego launched a hand kernel")
+        out[v] = res
+    del env, cbv
+
+    # (c) VAD's behaviour-cloning fit at S=8, the dataset on the card
+    env8 = TrafficEnv(tmap, num_scenarios=E2E_BC_S, num_agents=A)
+    st8, cr8, spec8 = env8.reset()
+    t1 = time.perf_counter()
+    data = bc_dataset(tmap, spec8, bc_rollout(tmap, spec8, st8, cr8, CHUNK))
+    torch.cuda.synchronize()
+    n = data["imgs"].shape[0]
+    model = init_e2e_weights(E2EModel("vad"), torch.Generator().manual_seed(0)).to(tmap.device)
+    zero_launches(counters)
+    t2 = time.perf_counter()
+    losses = bc_fit(model, data, epochs=2, batch_size=16)
+    torch.cuda.synchronize()
+    steps = len(losses)
+    first, second = np.mean(losses[:steps // 2]), np.mean(losses[steps // 2:])
+    if not (steps == 2 * (n // 16) and all(map(math.isfinite, losses)) and second < first):
+        raise AssertionError(f"vad BC fit: {steps} steps, losses {losses}")
+    if any(read_launches(counters).values()):
+        raise AssertionError("vad BC fit launched a hand kernel")
+    out["bc_fit"] = {
+        "variant": "vad", "scenarios": E2E_BC_S, "ticks": CHUNK, "samples": n,
+        "dataset_bytes": sum(t.numel() * t.element_size() for t in data.values()),
+        "rollout_and_dataset_s": t2 - t1, "ms_per_step": (time.perf_counter() - t2) * 1e3 / steps,
+        "losses": losses, "epoch_mean_losses": [float(first), float(second)],
+    }
+    del data, model
+
+    # (d) the CLI: train_ego, then eval with the fitted weights
+    cli_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_cli_e2e")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    common = ["--num_agents", str(A), "--blocks", "2", "--num_episodes", "1",
+              "--max_ticks", str(CHUNK), "--out_dir", cli_dir, "--ego_cfg", "sparsedrive"]
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as o:
+        run.main(["--mode", "train_ego", "--num_scenario", str(E2E_BC_S), *common])
+    npz = os.path.join(cli_dir, "train_ego", "sparsedrive-rift_pluto-seed0", "model_ckpt",
+                       "sparsedrive_bc.npz")
+    lines = [ln for ln in o.getvalue().splitlines() if "BC loss" in ln]
+    if not (os.path.exists(npz) and lines):
+        raise AssertionError(f"CLI train_ego sparsedrive: no {npz} or no BC loss printed")
+    out["cli_train_ego_s"] = time.perf_counter() - t1
+    out["cli_train_ego"] = lines[0]
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    with recording(run.EGO_POLICY_LIST, "sparsedrive", lambda p: None) as made, \
+            contextlib.redirect_stdout(io.StringIO()):
+        g = run.main(["--mode", "eval", "--num_scenario", str(S), "--ego_weights", npz, *common])
+    torch.cuda.synchronize()
+    out["cli_eval_s"] = time.perf_counter() - t1
+    launches["cli_e2e_eval"] = read_launches(counters)
+    check_counts("CLI sparsedrive eval", launches["cli_e2e_eval"],
+                 act_launches(CHUNK, legacy=True))
+    saved = flatten_params(load_params_npz(npz))
+    held = jax_flat_params(made[0][0].model)
+    if sorted(saved) != sorted(held) or any(not np.array_equal(saved[k], held[k])
+                                            for k in saved):
+        raise AssertionError("CLI eval: the sparsedrive ego's weights are not the npz's")
+    if g.total_routes != S or not math.isfinite(g.avg_driving_score):
+        raise AssertionError(f"CLI sparsedrive eval: {g.total_routes} routes, driving score "
+                             f"{g.avg_driving_score}")
+    out["cli_eval_avg_driving_score"] = g.avg_driving_score
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2668,6 +2866,11 @@ def main() -> int:
     print(f"# collect, PlanT fit, converter done {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
 
+    # ---- phase 18: the E2E camera egos, their BC fit and the CLI
+    e2e, e2e_launches = e2e_path(torch, tmap, counters, pdm_loop["eval_env_steps_per_s"])
+    launches.update(e2e_launches)
+    print(f"# E2E egos done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -2718,6 +2921,7 @@ def main() -> int:
         "route_cli": rcli,
         "per_tick": per_tick,
         "collect_and_plant": collect,
+        "e2e_egos": e2e,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

@@ -1,11 +1,11 @@
 """Policy registries: the CBV and ego zoos (port of rift_tpu/policies.py:
 the Pluto family, the classic PPO CBVs (`ppo`, `frea`, `fppo_rs`), and
-the rule, PDM-Lite, expert, expert-disturb, PlanT and PPO egos).
+the rule, PDM-Lite, expert, expert-disturb, PlanT, PPO and E2E camera
+egos: `vad`, `uniad`, `sparsedrive`).
 
-`CBV_POLICY_LIST` and `EGO_POLICY_LIST` hold the ported keys only; asking
-for another raises a KeyError that names the ported ones (ROADMAP.md
-lists what is still to come). A policy owns an `nn.Module` (its weights)
-and an explicit `torch.Generator`. The fine-tuned Pluto variants share
+`CBV_POLICY_LIST` and `EGO_POLICY_LIST` hold the JAX package's keys;
+asking for another raises a KeyError that names them. A policy owns an
+`nn.Module` (its weights) and an explicit `torch.Generator`. The fine-tuned Pluto variants share
 one rollout driver (models/pluto/policy.py:pluto_cbv_act) and differ in
 the loss their `train_round` hands to rl.trainer.fit and in the
 parameters it trains. Pluto runs on the legacy per-CBV tokens, the JAX
@@ -28,6 +28,7 @@ import torch
 
 from .ego.pdm_ego import pdm_ego_waypoints
 from .ego.rule_ego import rule_ego_waypoints
+from .models.e2e import E2EModel, bc_train, e2e_ego_waypoints, init_e2e_weights
 from .models.plant import PlanTModel, init_plant_weights, plant_ego_waypoints
 from .models.plant.train import load_plant_weights
 from .models.pluto import PlutoModel, canonical_map_tokens, pluto_cbv_act
@@ -51,18 +52,15 @@ from .utils.params_io import save_params_npz
 
 
 class _Registry(dict):
-    """A policy zoo: a key that is not ported raises a KeyError naming the
-    ported ones."""
+    """A policy zoo: an unknown key raises a KeyError naming the known ones."""
 
     def __init__(self, kind: str, entries: dict):
         super().__init__(entries)
         self.kind = kind
 
     def __missing__(self, key):
-        raise KeyError(
-            f"{self.kind} policy {key!r} is not ported to rift_tpu_torch yet "
-            f"(ported: {', '.join(sorted(self))}; ROADMAP.md lists the rest)"
-        )
+        raise KeyError(f"no {self.kind} policy {key!r} (the {self.kind} policies: "
+                       f"{', '.join(sorted(self))})")
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +668,65 @@ class EgoPPO:
         mgr.save(self.ppo.state_dict(), episode, name="ego_ppo")
 
 
+class E2EEgo:
+    """'vad' / 'uniad' / 'sparsedrive': the E2E camera stacks
+    (models/e2e) on the semantic camera rig (ego/sensors.py). Weights come
+    from an npz in the JAX package's format (`cfg['weights']`, or
+    `--ego_weights` through `load`), loaded strictly; without one they are
+    made at first use from a CPU `torch.Generator` seeded from the config's
+    `seed` (the same weights on every device). `train_bc` bootstraps them
+    by cloning the PDM expert closed-loop (models/e2e/train.py); it fits a
+    fresh model of the default width, whatever the config's `dim` and
+    `num_heads`, and seed 0, as the JAX package's does (ROADMAP.md §3).
+    `rollout.rollout_chunk` computes its waypoints every tick (ego kind
+    "e2e")."""
+
+    type = "il"
+
+    def __init__(self, tmap, cfg=None, seed=0):
+        cfg = cfg or {}
+        self.tmap = tmap
+        self.dims = {"dim": cfg.get("dim", 64), "num_heads": cfg.get("num_heads", 4)}
+        self.seed = cfg.get("seed", seed)
+        self.model = None
+        if cfg.get("weights"):
+            self.load(cfg["weights"])
+
+    def init(self) -> E2EModel:
+        """The model, made on the map's device on the first call."""
+        if self.model is None:
+            model = init_e2e_weights(E2EModel(self.name, **self.dims),
+                                     torch.Generator().manual_seed(self.seed))
+            self.model = model.to(self.tmap.device).eval().requires_grad_(False)
+        return self.model
+
+    def act(self, spec, state, train=False):
+        return e2e_ego_waypoints(self.init(), self.tmap, spec, state)
+
+    def train_bc(self, spec, state, crit, **kw):
+        model, losses = bc_train(self.name, self.tmap, spec, state, crit, **kw)
+        self.model = model.eval().requires_grad_(False)
+        return losses
+
+    def load(self, path: str):
+        load_jax_params(self.init(), flatten_params(load_params_npz(path)))
+
+    def save(self, path: str):
+        save_params_npz(self.init(), path)
+
+
+class VADEgo(E2EEgo):
+    name = "vad"
+
+
+class UniADEgo(E2EEgo):
+    name = "uniad"
+
+
+class SparseDriveEgo(E2EEgo):
+    name = "sparsedrive"
+
+
 EGO_POLICY_LIST: dict[str, Callable] = _Registry("ego", {
     "pdm_lite": PDMLiteEgo,
     "behavior": BehaviorEgo,
@@ -677,4 +734,7 @@ EGO_POLICY_LIST: dict[str, Callable] = _Registry("ego", {
     "expert_disturb": ExpertDisturbEgo,
     "plant": PlanTEgo,
     "ppo": EgoPPO,
+    "vad": VADEgo,
+    "uniad": UniADEgo,
+    "sparsedrive": SparseDriveEgo,
 })

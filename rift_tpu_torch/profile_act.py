@@ -3,7 +3,8 @@ tick or one step of PlanT's behaviour-cloning fit goes on the card.
 
     python3 -m rift_tpu_torch.profile_act [--mode eval|train|fit|world|tick|plant_fit]
         [--steps 5]
-        [--legacy] [--ego rule|pdm|expert|plant|ppo] [--recog rule|attention] [--routes]
+        [--legacy] [--ego rule|pdm|expert|plant|ppo|vad|uniad|sparsedrive]
+        [--recog rule|attention] [--routes]
 
 Builds the chip_smoke scene (grid town, S=64 x A=24 x C=3, CBVs on slots
 1..3; with `--routes`, chip_smoke's route town of its route file's first
@@ -19,7 +20,9 @@ churn, recognition on every second call: the rule's, or with `--recog
 attention` ranked by chip_smoke's PlanT recognizer) or an eval tick (the
 act, then the env step). The `plant` ego is chip_smoke's PlanT_medium;
 the `ppo` ego (seeded weights, deterministic) drives the ego by raw
-controls (env_step's `ego_ctrl`), its act inside each traced call.
+controls (env_step's `ego_ctrl`), its act inside each traced call; the
+E2E camera egos (`vad`, `uniad`, `sparsedrive`, seeded weights at the
+default width) render their cameras and run their model inside each call.
 `plant_fit` traces `plant_bc_step` of PlanT_medium (f32, chip_smoke's
 seeded weights, AdamW) on a batch of the scene's S = 64 token sets with
 seeded waypoint labels, as PlanT's fit runs it.
@@ -58,7 +61,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--legacy", action="store_true", help="per-CBV (legacy) tokens")
-    ap.add_argument("--ego", choices=("rule", "pdm", "expert", "plant", "ppo"), default="rule")
+    ap.add_argument("--ego", default="rule", choices=(
+        "rule", "pdm", "expert", "plant", "ppo", "vad", "uniad", "sparsedrive"))
     ap.add_argument("--recog", choices=("rule", "attention"), default="rule")
     ap.add_argument("--routes", action="store_true", help="chip_smoke's route town")
     args = ap.parse_args()
@@ -76,6 +80,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ego_model = recog = None
+    ego_kind = "e2e" if args.ego in ("vad", "uniad", "sparsedrive") else args.ego
     if args.ego == "plant" or args.recog == "attention":
         ego_model, recog = cs.plant_models(torch)
         recog = recog if args.recog == "attention" else None
@@ -117,12 +122,14 @@ def main() -> int:
         ticks = iter(range(30, 10**6))
 
         ppo_ego = policies.EgoPPO(tmap) if args.ego == "ppo" else None
+        if ego_kind == "e2e":
+            ego_model = policies.EGO_POLICY_LIST[args.ego](tmap).init()
 
         def act():
             if ppo_ego is not None:
                 cbv = {"ego_ctrl": ppo_ego.act(spec, state)["ctrl"]}
             else:
-                cbv = {"ego_traj": ego_waypoints(args.ego, tmap, spec, state, ego_model)}
+                cbv = {"ego_traj": ego_waypoints(ego_kind, tmap, spec, state, ego_model)}
             if args.mode == "tick":
                 res = pluto_cbv_act(model, tmap, spec, state, max_cbvs=cs.C,
                                     canonical=canonical, map_tok=tok)

@@ -18,6 +18,7 @@ import torch
 
 from .ego.pdm_ego import pdm_ego_waypoints
 from .map.tensor_map import TensorMap
+from .models.e2e.policy import e2e_ego_waypoints
 from .models.plant.policy import plant_ego_waypoints
 from .models.pluto.policy import pluto_cbv_act
 from .rl.buffer import ring_append, ring_init
@@ -123,23 +124,26 @@ def flush_pending(store_fn, pending: list):
         pending.clear()
 
 
-EGO_KINDS = ("rule", "pdm", "expert", "plant")
+EGO_KINDS = ("rule", "pdm", "expert", "plant", "e2e")
 
 
 def ego_waypoints(ego: str, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
                   ego_model=None):
     """The ego's waypoints of this tick for `rollout_chunk`'s ego kind:
     the PDM-Lite ego ("pdm"), the same with privileged lane changes
-    ("expert"), the PlanT transformer `ego_model` ("plant"), or None, which
+    ("expert"), the PlanT transformer `ego_model` ("plant"), an E2E camera
+    stack `ego_model` ("e2e": vad, uniad or sparsedrive), or None, which
     leaves env_step to the rule ego ("rule")."""
     if ego == "rule":
         return None
     if ego not in EGO_KINDS:
         raise ValueError(f"ego kind {ego!r} is not ported (ported: {', '.join(EGO_KINDS)})")
+    if ego in ("plant", "e2e") and ego_model is None:
+        raise ValueError(f"the {ego} ego needs its model (ego_model)")
     if ego == "plant":
-        if ego_model is None:
-            raise ValueError("the plant ego needs its model (ego_model)")
         return plant_ego_waypoints(ego_model, spec, state)
+    if ego == "e2e":
+        return e2e_ego_waypoints(ego_model, tmap, spec, state)
     return pdm_ego_waypoints(spec, state, tmap, lane_change=ego == "expert")
 
 
@@ -150,9 +154,9 @@ def rollout_chunk(model, tmap: TensorMap, spec: ScenarioSpec, state: SimState,
                   execute_teacher: bool = False, ego_model=None, recog_model=None,
                   *, tick: int):
     """Advance all scenarios `num_steps` ticks: each tick the ego's
-    waypoints (`ego`: "rule", "pdm", "expert" or "plant" with its PlanTModel
-    `ego_model`, computed in the loop, as the JAX package computes them in
-    its scan), the Pluto CBVs' act (legacy
+    waypoints (`ego`: "rule", "pdm", "expert", or "plant" or "e2e" with its
+    PlanTModel or E2EModel `ego_model`, computed in the loop, as the JAX
+    package computes them in its scan), the Pluto CBVs' act (legacy
     per-CBV tokens, or with `canonical` frame-invariant ones, `map_tok`
     precomputed), then the env step; `with_policy=False` runs the world
     alone. `execute_teacher` (train mode) makes the CBVs execute the

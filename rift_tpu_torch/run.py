@@ -6,7 +6,11 @@ synthetic towns and on route files).
   train_cbv     fine-tune the CBV policy: buffer full -> fit -> the updated
                 weights drive the next ticks (the Pluto family); GAE PPO
                 rounds at each episode's end (the classic rl CBVs)
-  train_ego     PPO on the rl-type ego (`ppo`) through env_step's `ego_ctrl`
+  train_ego     PPO on the rl-type ego (`ppo`) through env_step's `ego_ctrl`;
+                for the il-type E2E camera egos (`vad`, `uniad`,
+                `sparsedrive`) a behaviour-cloning fit of the PDM expert
+                every episode (models/e2e/train.py), saved as
+                `<out_dir>/train_ego/<tag>/model_ckpt/<ego>_bc.npz`
   collect_data  every tick's SimState into `<out_dir>/collect_data/<tag>/
                 <ego>_<cbv>.hdf5` (rl/collect.py; needs h5py), the dataset of
                 PlanT's behaviour cloning (models/plant/train.py); with
@@ -29,10 +33,12 @@ batch on a junction town built from its routes (map/from_route.py, with
 on one town of all the run's routes built up front. The last, partial
 batch is padded with its last route; only the real routes become records,
 each with its route id and weather. The `plant` ego (PlanT_medium,
-`--ego_weights`) and attention recognition (`--cbv_recog attention`, a
+`--ego_weights`), the E2E camera egos (`--ego_weights`, or `weights` in
+their config) and attention recognition (`--cbv_recog attention`, a
 PlanT scorer of dim 128, 4 layers, 4 heads, `--recog_weights`) take
 weights in the JAX package's npz format; without them they start from
-seeded weights.
+seeded weights. `--pretrain` loads the Pluto-family CBV only, as in the
+JAX CLI.
 
 In eval and the Pluto family's train_cbv, ticks run in chunks of
 FUSED_CHUNK through rollout.rollout_chunk, with the ego's waypoints
@@ -46,9 +52,8 @@ a run directory under `<out_dir>/<mode>/<tag>/runs` (utils/tracking.py);
 `--seed` seeds the scenes and the recognizer, not the policies (their
 configs' `seed`), and `--resume` outside eval and collect_data restores
 nothing: the run starts again at episode 0. Everything runs on CUDA unless
-`--device cpu`. Not ported yet (ROADMAP.md): `--render`, `--repetitions`
-(parsed, and read by neither CLI), and the E2E egos (asking for one
-raises, naming the ported egos).
+`--device cpu`. Not ported yet (ROADMAP.md): `--render`, and
+`--repetitions` (parsed, and read by neither CLI).
 """
 
 from __future__ import annotations
@@ -89,6 +94,9 @@ FUSED_EGO_KIND = {
     "expert": "expert",  # pdm + privileged lane changes
     "behavior": "rule",
     "plant": "plant",
+    "vad": "e2e",  # the E2E camera stacks
+    "uniad": "e2e",
+    "sparsedrive": "e2e",
 }
 # the attention recognizer's PlanT scorer
 RECOG_DIMS = {"dim": 128, "num_layers": 4, "num_heads": 4}
@@ -113,7 +121,7 @@ def run_episode_fused(env, ego, cbv, state, crit, spec, max_ticks, train=False,
     buffer-full event, and later chunks roll out with the updated weights.
     Returns (state, crit)."""
     ego_kind = FUSED_EGO_KIND[ego.name]
-    ego_model = ego.init() if ego_kind == "plant" else None  # made at first use
+    ego_model = ego.init() if ego_kind in ("plant", "e2e") else None  # made at first use
     with_policy = hasattr(cbv, "model")  # the Pluto family
     train_extras = train and with_policy and cbv.trainable
     n_chunks = max((max_ticks + chunk - 1) // chunk, 1)
@@ -375,8 +383,8 @@ def parse_args(argv=None):
                    help="npz of trained PlanT scorer params "
                         "(models/plant/train.py) for --cbv_recog attention")
     p.add_argument("--ego_weights", default="",
-                   help="npz of trained ego params (PlanT, in the JAX "
-                        "package's npz format) loaded into the ego before the "
+                   help="npz of trained ego params (PlanT or an E2E stack, in "
+                        "the JAX package's npz format) loaded into the ego before the "
                         "run — the reference's team_code checkpoint load "
                         "(plant_agent.py:29)")
     p.add_argument("--pretrain", default="",
@@ -561,6 +569,15 @@ def main(argv=None):
             if ep_losses:
                 print(f"episode {ep}: ego PPO losses {ep_losses[:3]}...")
             ego.save(ckpt, ep)
+        elif args.mode == "train_ego" and hasattr(ego, "train_bc"):
+            # the il-type E2E egos clone the PDM expert closed-loop, from
+            # fresh weights every episode (as the JAX CLI; ROADMAP.md §3)
+            ep_losses = ego.train_bc(spec, state, crit, ticks=args.max_ticks)
+            print(f"episode {ep}: {ego.name} BC loss {ep_losses[0]:.4f} -> "
+                  f"{ep_losses[-1]:.4f}")
+            npz = os.path.join(out_dir, "model_ckpt", f"{ego.name}_bc.npz")
+            os.makedirs(os.path.dirname(npz), exist_ok=True)
+            ego.save(npz)
         elif train_cbv and cbv_is_classic_rl:
             state, crit, ep_losses = train_classic_cbv_episode(env, ego, cbv, state, crit,
                                                                spec, args.max_ticks)

@@ -62,9 +62,10 @@ def _target(model: nn.Module, key: str):
     The leading "params" collection and the automatic "flat" child that
     flax's PointsEncoder adds for batched input are dropped. A flax Dense
     kernel [in, out] (packed attention projections: [in, H, Dh] and
-    [H, Dh, out]) becomes an nn.Linear weight [out, in]; LayerNorm `scale`
-    is `weight`; Embed `embedding` is `weight`; any other leaf is a
-    parameter of the same name and shape."""
+    [H, Dh, out]) becomes an nn.Linear weight [out, in]; a flax Conv
+    kernel, HWIO [kh, kw, in, out], an nn.Conv2d weight, OIHW; LayerNorm
+    `scale` is `weight`; Embed `embedding` is `weight`; any other leaf is
+    a parameter of the same name and shape."""
     parts = [p for p in _parts(key) if p != "flat"]
     if parts and parts[0] == "params":
         parts = parts[1:]
@@ -80,6 +81,8 @@ def _target(model: nn.Module, key: str):
         return name("weight"), lambda a: a.reshape(mod.in_features, -1).T
     if isinstance(mod, nn.Linear) and leaf == "bias":
         return name("bias"), lambda a: a.reshape(-1)
+    if isinstance(mod, nn.Conv2d) and leaf == "kernel":
+        return name("weight"), lambda a: a.transpose(3, 2, 0, 1)
     if isinstance(mod, nn.LayerNorm) and leaf in ("scale", "bias"):
         return name("weight" if leaf == "scale" else "bias"), lambda a: a
     if isinstance(mod, nn.Embedding) and leaf == "embedding":
@@ -135,10 +138,12 @@ def load_ppo_params(actor: nn.Module, critic: nn.Module, params) -> None:
 def jax_flat_params(model: nn.Module) -> dict:
     """The model's parameters as the JAX package's flat {path: array}: the
     inverse of `load_jax_params`. A Linear's weight [out, in] becomes the
-    flax kernel [in, out] (an Attention projection's: q/k/v [in, H, Dh]
-    with bias [H, Dh], out [H, Dh, out]); LayerNorm weights become
+    flax kernel [in, out] (an attention projection's: q/k/v or
+    query/key/value [in, H, Dh] with bias [H, Dh], out [H, Dh, out]); a
+    Conv2d's weight OIHW the flax kernel HWIO; LayerNorm weights become
     `scale`, Embedding weights `embedding`; a PointsEncoder's params sit
     under the `flat` child that flax adds for batched input."""
+    from ..models.e2e.model import MultiHeadDotProductAttention
     from ..models.pluto.layers import Attention, PointsEncoder
 
     mods = dict(model.named_modules())
@@ -154,7 +159,7 @@ def jax_flat_params(model: nn.Module) -> dict:
             if isinstance(mods[".".join(path[: i + 1])], PointsEncoder):
                 keys.append("flat")
         if isinstance(mod, nn.Linear):
-            if isinstance(parent, Attention):
+            if isinstance(parent, (Attention, MultiHeadDotProductAttention)):
                 H = parent.num_heads
                 if path[-1] == "out":
                     a = a.T.reshape(H, -1, a.shape[0]) if leaf == "weight" else a
@@ -163,6 +168,8 @@ def jax_flat_params(model: nn.Module) -> dict:
             elif leaf == "weight":
                 a = a.T
             leaf = "kernel" if leaf == "weight" else leaf
+        elif isinstance(mod, nn.Conv2d) and leaf == "weight":
+            a, leaf = a.transpose(2, 3, 1, 0), "kernel"
         elif isinstance(mod, nn.LayerNorm) and leaf == "weight":
             leaf = "scale"
         elif isinstance(mod, nn.Embedding) and leaf == "weight":

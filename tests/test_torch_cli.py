@@ -120,8 +120,8 @@ def test_run_train_cbv_then_eval_resume(tmp_path, capsys, monkeypatch):
         records = json.load(f)["records"]
     assert g.total_routes == 4 and len(records) == 4 and records[:2] == first
     assert "episode 0" not in capsys.readouterr().out.split("loaded pretrain")[-1]
-    with pytest.raises(KeyError, match="'vad' is not ported"):
-        run.main(["--mode", "train_ego", "--ego_cfg", "vad", "--device", "cpu",
+    with pytest.raises(KeyError, match="no ego policy 'carla_autopilot'"):
+        run.main(["--mode", "train_ego", "--ego_cfg", "carla_autopilot", "--device", "cpu",
                   "--out_dir", out])
     with pytest.raises(SystemExit):  # --render is not ported yet: argparse refuses it
         run.main(["--mode", "eval", "--render", "--device", "cpu"])

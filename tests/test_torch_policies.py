@@ -114,12 +114,11 @@ def test_teacher_label_and_registry():
 
     assert set(policies.CBV_POLICY_LIST) == {"standard", "pluto", *FINE_TUNED, "ppo", "frea",
                                              "fppo_rs"} == set(jpolicies.CBV_POLICY_LIST)
-    e2e = {"vad", "uniad", "sparsedrive"}  # not ported yet
-    assert set(policies.EGO_POLICY_LIST) == set(jpolicies.EGO_POLICY_LIST) - e2e
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        policies.EGO_POLICY_LIST["vad"]
+    assert set(policies.EGO_POLICY_LIST) == set(jpolicies.EGO_POLICY_LIST)
     with pytest.raises(KeyError, match="pdm_lite"):
-        policies.EGO_POLICY_LIST["uniad"]
+        policies.EGO_POLICY_LIST["carla_autopilot"]
+    with pytest.raises(KeyError, match="sparsedrive"):
+        policies.EGO_POLICY_LIST["e2e"]
     for name, cls in policies.CBV_POLICY_LIST.items():
         assert cls.name == jpolicies.CBV_POLICY_LIST[name].name == name
         assert cls.type == jpolicies.CBV_POLICY_LIST[name].type
