@@ -10,7 +10,8 @@ then route files on route towns with the PlanT_medium ego and attention
 recognition; then the per-tick loop with raw controls, classic PPO and
 train_ego; then data collection, PlanT's behaviour-cloning fit and the
 Pluto checkpoint converter; then the E2E camera egos (vad, uniad,
-sparsedrive), their behaviour-cloning fit and their CLI.
+sparsedrive), their behaviour-cloning fit and their CLI; then the Runner
+sharded over two ranks and `--render`.
 
     python3 chip_smoke.py
 
@@ -171,7 +172,21 @@ Phases (any failure raises and exits non-zero):
      loss below the first's); `run.main --mode train_ego --ego_cfg
      sparsedrive` at S=8, then `--mode eval --ego_weights` its
      `sparsedrive_bc.npz` at S=64 (exact launches, the ego's weights the
-     file's).
+     file's);
+ 19. data parallelism and `--render`: two ranks over gloo, both on the one
+     card (NCCL refuses two ranks on one device: "Duplicate GPU detected"),
+     each started as `chip_smoke.py --shard-rank R PORT DIR`, run
+     `Runner.train_cbv` for one 80-tick episode at S=8 (4 scenarios a rank,
+     the bench width, canonical tokens) and its fit round (a buffer of 128,
+     2 epochs of 4 steps), while this process runs it unsharded: each
+     rank's launches exact, the fit's parameters the same bits on both
+     ranks, the gathered final states within phase 9's shares of agents
+     apart (at S=8, one agent may be); a one-rank NCCL group through
+     `init_distributed` and the collectives of the shard path; then
+     `--render`: with matplotlib `run.main --render` for 10 ticks at S=4 and
+     its files, without it the ImportError that names it; and the
+     observer's world-frame candidates on the card against their host
+     recomputation.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -2605,6 +2620,282 @@ def e2e_path(torch, tmap, counters, pdm_eval_rate):
     return out, launches
 
 
+SHARD_S, SHARD_RANKS = 8, 2  # phase 19: scenarios, and ranks over gloo on the one card
+SHARD_TICKS, SHARD_BUFFER, SHARD_BATCH = 2 * CHUNK, 128, 32
+RANK_TIMEOUT_S = 300
+
+
+def shard_config():
+    """Phase 19's Runner: the bench width (A=24, C=3, depth 4, bf16,
+    canonical tokens) at S=8, one 80-tick train episode whose buffer of 128
+    fills for one fit round of 2 epochs of 4 steps."""
+    from rift_tpu_torch.rl import TrainConfig
+    from rift_tpu_torch.runner import RunnerConfig
+
+    return RunnerConfig(num_scenarios=SHARD_S, num_agents=A, max_cbvs=C,
+                        max_episode_ticks=SHARD_TICKS, buffer_capacity=SHARD_BUFFER,
+                        canonical=True,
+                        train=TrainConfig(epochs=2, warmup_epochs=1, batch_size=SHARD_BATCH))
+
+
+def shard_train_episode(torch, runner, counters):
+    """`Runner.train_cbv` for one episode (its fit round included), its
+    kernel launches and seconds; returns (final state of this process's
+    scenarios, losses, launches, ticks, seconds)."""
+    episode = {}
+    run_episode = runner.run_episode
+
+    def kept(*a, **k):
+        episode["out"] = run_episode(*a, **k)
+        return episode["out"]
+
+    runner.run_episode = kept
+    torch.cuda.synchronize()
+    zero_launches(counters)
+    t1 = time.perf_counter()
+    losses = runner.train_cbv(num_episodes=1, chunk=CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = read_launches(counters)
+    if runner.train_rounds != 1:
+        raise AssertionError(f"sharded train_cbv: buffer {runner.buffer.size} of "
+                             f"{SHARD_BUFFER}; no fit round")
+    ticks = runner.env.tick
+    steps = runner.cfg.train.epochs * (SHARD_BUFFER // SHARD_BATCH)
+    check_counts(f"train_cbv at S={runner.env.num_scenarios}", launches,
+                 add(act_launches(ticks, train=True, map_tokens=True), fit_launches(steps)))
+    return episode["out"][0], losses, launches, ticks, seconds
+
+
+def shard_rank(rank, port, out_dir):
+    """One of phase 19's two ranks (`python3 chip_smoke.py --shard-rank R
+    PORT DIR`): joins the gloo group on the card, runs the sharded
+    `Runner.train_cbv`, and writes its launches, losses, a digest of its
+    parameters and the gathered final state to DIR."""
+    import hashlib
+    import os
+
+    import torch
+
+    from rift_tpu_torch.map import make_grid_town
+    from rift_tpu_torch.parallel import init_distributed, replicate_global
+    from rift_tpu_torch.parallel.mesh import gather_scenarios
+    from rift_tpu_torch.runner import Runner
+
+    if not torch.cuda.is_available():
+        return 1
+    t0 = time.perf_counter()
+    init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=SHARD_RANKS,
+                     process_id=rank, local_device_ids=[0], backend="gloo")
+    counters = kernel_counters()
+    runner = Runner(make_grid_town(blocks=2, num_lanes=2), shard_config())
+    if runner.mesh is None or runner.mesh.size() != SHARD_RANKS:
+        raise AssertionError("the Runner did not shard")
+    state, losses, launches, ticks, seconds = shard_train_episode(torch, runner, counters)
+    replicate_global(dict(runner.model.state_dict()), runner.mesh)  # raises if apart
+    digest = hashlib.sha256()
+    for name, p in runner.model.state_dict().items():
+        digest.update(name.encode() + p.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    gathered = gather_scenarios((state.pos, state.is_cbv, state.alive), runner.mesh)
+    torch.save([t.cpu() for t in gathered], os.path.join(out_dir, f"state_{rank}.pt"))
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "losses": losses, "params_sha256": digest.hexdigest(),
+                   "ticks": ticks, "train_cbv_s": seconds, "local_scenarios":
+                   int(state.pos.shape[0]), "records": len(runner.stats.records),
+                   "seconds": time.perf_counter() - t0}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def world_frame_numpy(np, cbv_out, prev_state):
+    """rift_tpu/run.py:797-811, on the host: scenario 0's executed CBV
+    trajectories from their local frames into the world frame."""
+    mask = cbv_out["mask"][0].cpu().numpy()
+    tr = cbv_out["traj"][0].cpu().numpy()[mask]
+    hd = prev_state.heading[0].cpu().numpy()[mask]
+    ps = prev_state.pos[0].cpu().numpy()[mask]
+    c, s = np.cos(hd)[:, None], np.sin(hd)[:, None]
+    return np.stack([tr[..., 0] * c - tr[..., 1] * s + ps[:, None, 0],
+                     tr[..., 0] * s + tr[..., 1] * c + ps[:, None, 1]], axis=-1)
+
+
+def shard_and_render(torch, tmap, counters, scene):
+    """Phase 19: (a) the Runner's shard path on the card's one H100: two
+    ranks over gloo, both on cuda:0 (NCCL refuses two ranks on one device),
+    run `Runner.train_cbv` for one 80-tick episode at S=8 (4 a rank) and its
+    fit round; this process runs the same unsharded meanwhile. The gathered
+    final states match the single process's at phase 9's f32 closed-loop
+    bound (shares of agents and of CBVs more than 1 cm apart or with
+    another CBV flag; at S=8 one agent may be); the fit's parameters are the same bits on both ranks; each
+    rank's hand-kernel launches are exact, counted as phases 9 and 16 count
+    them. A one-rank NCCL group then joins through `init_distributed` and
+    runs the collectives the shard path uses. (b) `--render`: with
+    matplotlib, `run.main --render` for 10 ticks at S=4 and its files;
+    without it, the ImportError that names it. Either way the observer's
+    world-frame candidates (`run.world_frame_candidates`, on the card, and
+    through `run.render_observer`) against their host recomputation on a
+    scene with CBVs."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from rift_tpu_torch import run
+    from rift_tpu_torch.models.pluto import canonical_map_tokens, pluto_cbv_act
+    from rift_tpu_torch.parallel import init_distributed, make_mesh, replicate, shard_batch
+    from rift_tpu_torch.parallel.mesh import gather_scenarios
+    from rift_tpu_torch.runner import Runner
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r), str(port), work],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(SHARD_RANKS)]
+    try:
+        # the same episode unsharded, in this process, while the ranks run
+        one = Runner(tmap, shard_config())
+        state1, losses1, launches["shard_single_process"], ticks1, seconds1 = \
+            shard_train_episode(torch, one, counters)
+        logs = []
+        for p in procs:
+            log, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            logs.append(log)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 19 rank failed:\n{log[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(work, f"rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+        launches[f"shard_rank_{r}"] = ranks[-1]["launches"]
+    pos, is_cbv, alive = torch.load(os.path.join(work, "state_0.pt"))
+    shutil.rmtree(work, ignore_errors=True)
+    if len({r["params_sha256"] for r in ranks}) != 1 or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"phase 19: the ranks' fits differ: {ranks}")
+    if any(r["ticks"] != ticks1 or r["records"] != SHARD_S or
+           r["local_scenarios"] != SHARD_S // SHARD_RANKS for r in ranks):
+        raise AssertionError(f"phase 19: ticks, records or shards {ranks}, one process "
+                             f"{ticks1} ticks")
+    if not all(math.isfinite(x) for x in ranks[0]["losses"][0] + losses1[0]):
+        raise AssertionError(f"phase 19 losses {ranks[0]['losses']} {losses1}")
+    # the ranks' bf16 products run on 4 scenarios where the one process's
+    # run on 8, and cuBLAS may round them otherwise: the closed loop is held
+    # to phase 9's shares of agents apart, which at S=8 (192 agents, a few
+    # CBVs) would admit no agent at all, so one may end apart
+    pos, is_cbv = pos.cuda(), is_cbv.cuda()
+    apart = (torch.linalg.norm(pos - state1.pos, dim=-1) > 1e-2) | (is_cbv != state1.is_cbv)
+    cbv = is_cbv | state1.is_cbv
+    shares = {"agents": apart.numel(), "agents_apart": int(apart.sum()),
+              "cbvs_at_end": int(cbv.sum()), "cbvs_apart": int(apart[cbv].sum()),
+              "max_pos_err_of_the_rest": (pos - state1.pos)[~apart].abs().max().item()}
+    if not (shares["agents_apart"] <= max(1, int(LOOP_AGENTS_APART * apart.numel()))
+            and shares["cbvs_apart"] <= max(1, int(LOOP_CBVS_APART * int(cbv.sum())))):
+        raise AssertionError(f"phase 19: sharded vs one process {shares} (bounds: shares "
+                             f"{LOOP_AGENTS_APART} and {LOOP_CBVS_APART}, or one agent)")
+    out["shard"] = {
+        "scenarios": SHARD_S, "ranks": SHARD_RANKS, "backend": "gloo", "ticks": ticks1,
+        "fit_steps": one.cfg.train.epochs * (SHARD_BUFFER // SHARD_BATCH),
+        "rank_losses": ranks[0]["losses"], "single_process_losses": losses1,
+        "params_same_bits": True, "rank_train_cbv_s": [r["train_cbv_s"] for r in ranks],
+        "rank_seconds": [r["seconds"] for r in ranks], "single_process_train_cbv_s": seconds1,
+        **shares,
+    }
+
+    # a one-rank NCCL group: the collectives of the shard path on the card
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if not init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                            process_id=0):
+        raise AssertionError("init_distributed did not join")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"backend {torch.distributed.get_backend()}, not nccl")
+        mesh = make_mesh()
+        tree = {"x": torch.arange(12.0, device="cuda").reshape(4, 3),
+                "m": torch.ones(4, dtype=torch.bool, device="cuda")}
+        back = gather_scenarios(shard_batch(replicate(tree, mesh), mesh), mesh)
+        t = torch.ones(3, device="cuda")
+        torch.distributed.all_reduce(t)
+        if not (torch.equal(back["x"], tree["x"]) and torch.equal(t, torch.ones(3, device="cuda"))
+                and mesh.mesh_dim_names == ("scenario",)):
+            raise AssertionError("one-rank NCCL collectives")
+    finally:
+        torch.distributed.destroy_process_group()
+    out["nccl_one_rank"] = "ok"
+
+    # (b) --render
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    render_dir = os.path.join(here, "build", "chip_smoke_render")
+    shutil.rmtree(render_dir, ignore_errors=True)
+    argv = ["--mode", "eval", "--render", "--num_scenario", "4", "--max_ticks", "10",
+            "--num_episodes", "1", "--out_dir", render_dir]
+    if have_mpl:
+        run.main(argv)
+        files = sorted(os.listdir(os.path.join(render_dir, "eval", "pdm_lite-rift_pluto-seed0",
+                                               "video_ep0")))
+        if "ep0_last.png" not in files or not any(f.startswith("ep0.") for f in files):
+            raise AssertionError(f"--render wrote {files}")
+        out["render"] = {"ran": "run.main --render", "files": files}
+    else:
+        try:
+            run.main(argv)
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            out["render"] = {"ran": "ImportError", "error": str(e)}
+        else:
+            raise AssertionError("--render without matplotlib did not raise")
+    # the observer's world-frame candidates on the card against the host
+    state, spec = scene
+    tok = canonical_map_tokens(one.model, tmap)
+    cbv_out = pluto_cbv_act(one.model, tmap, spec, state, max_cbvs=C, canonical=True,
+                            map_tok=tok)
+    got = run.world_frame_candidates(cbv_out, state)
+    want = world_frame_numpy(np, cbv_out, state)
+    captured = []
+
+    class Frames:  # a recorder that keeps what the observer hands it
+        def keeps(self, tick):
+            return True
+
+        def maybe_capture(self, st, scenario=0, tick=None, **kw):
+            captured.append(kw["candidates"])
+
+    class Env:
+        tick = 5
+
+    run.render_observer(Env, spec, Frames())(state, state, None, None, cbv_out)
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or len(want) == 0 or not err <= 1e-4 or \
+            not np.array_equal(captured[0], got):
+        raise AssertionError(f"world-frame candidates {got.shape} vs {want.shape}: {err}")
+    out["render"].update(world_frame_candidates=int(len(want)), world_frame_max_abs_err=err)
+    print(f"# phase 19 --render: {out['render']['ran']}", file=sys.stderr)
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2871,6 +3162,11 @@ def main() -> int:
     launches.update(e2e_launches)
     print(f"# E2E egos done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
+    # ---- phase 19: the shard path over two ranks, NCCL, and --render
+    shard, shard_launches = shard_and_render(torch, tmap, counters, scenes[0])
+    launches.update(shard_launches)
+    print(f"# shard path and render done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -2922,6 +3218,7 @@ def main() -> int:
         "per_tick": per_tick,
         "collect_and_plant": collect,
         "e2e_egos": e2e,
+        "shard_and_render": shard,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))
@@ -2936,4 +3233,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -15,3 +15,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+# subpackages loaded on first use: `rift_tpu_torch.viz` (the BEV renderer,
+# which draws with matplotlib) and `rift_tpu_torch.parallel`
+_LAZY = ("parallel", "viz")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

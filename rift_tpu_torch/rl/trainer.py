@@ -1,7 +1,7 @@
 """Fine-tune trainer over the on-device buffer (port of rift_tpu/rl/trainer.py:
-`TrainConfig`, `trainable_mask`, the optimizer, one train step and the
-single-device `fit`; the multi-device path comes with multi-GPU), and the
-RIFT loss function of rift_tpu/runner.py:238.
+`TrainConfig`, `trainable_mask`, the optimizer, one train step and `fit`, on
+one device or across the ranks of a scenario mesh), and the RIFT loss
+function of rift_tpu/runner.py:238.
 
 Hyperparameters mirror rlft/config/rift_training.yaml: lr 1e-4, 16
 epochs, 3 warmup epochs, grad clip 0.5, batch 256, closed-loop lr decay 0.9
@@ -10,6 +10,16 @@ package's optax chain (clip by global norm over the trainable grads ->
 Adam -> decoupled weight decay on the trainable leaves -> x(-lr)) is
 `clip_grad_norm_` then `torch.optim.AdamW` over the trainable parameters;
 the frozen ones are never handed to the optimizer and stay bit-identical.
+
+Across ranks (`mesh`), `fit` computes what the JAX package's SPMD fit
+computes, the loss of each global batch: every rank holds the same buffer
+(the Runner gathers each stored chunk) and draws the same batch indices;
+it takes its block of the batch's rows and weights its loss by its share of
+the count the loss divides by (a loss function's `normaliser`: for
+`rift_loss_fn` the batch's valid candidates), so that the gradients summed
+over the ranks are the global batch's, not a mean of per-rank means. The
+clip then sees the global norm, as `optax.clip_by_global_norm`, and every
+rank applies the same AdamW step: the parameters stay the same bits.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum_, shard_batch
 from .buffer import RingBuffer, gather_batch, sample_batches
 from .losses import rift_loss
 
@@ -57,18 +68,45 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam
     )
 
 
-def train_step(model, opt, loss_fn, batch, lr: float, cfg: TrainConfig):
+def loss_and_grads(model, loss_fn, batch, params: list, mesh=None):
+    """The loss of `batch`, its gradient in the `.grad` of `params` (the
+    trainable ones). With a mesh: this rank's block of the rows, its loss
+    weighted by its share of `loss_fn.normaliser`, and the gradients and
+    the loss summed over the ranks (one all-reduce): the whole batch's.
+    Returns the loss (a 0-dim tensor)."""
+    model.zero_grad(set_to_none=True)
+    if mesh is None:
+        loss = loss_fn(model, batch)
+        loss.backward()
+        return loss.detach()
+    normaliser = getattr(loss_fn, "normaliser", None)
+    if normaliser is None:
+        raise ValueError(f"fit across ranks needs {getattr(loss_fn, '__name__', loss_fn)}"
+                         ".normaliser, the count its loss divides by")
+    local = shard_batch(batch, mesh)
+    loss = loss_fn(model, local) * (normaliser(local) / normaliser(batch))
+    loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.detach().reshape(1).float()])
+    all_reduce_sum_(flat, mesh)
+    off = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[off:off + g.numel()].view(g.shape).to(g.dtype)
+        off += g.numel()
+    return flat[-1]
+
+
+def train_step(model, opt, loss_fn, batch, lr: float, cfg: TrainConfig, mesh=None):
     """One update of the optimizer's (trainable) parameters at learning rate
-    `lr`: loss, backward, clip by the global norm of their gradients,
-    AdamW. Returns the loss (a 0-dim tensor, not synchronised)."""
+    `lr`: loss, backward (across the mesh's ranks: see `loss_and_grads`),
+    clip by the global norm of their gradients, AdamW. Returns the loss (a
+    0-dim tensor, not synchronised)."""
     (group,) = opt.param_groups
     group["lr"] = lr
-    model.zero_grad(set_to_none=True)
-    loss = loss_fn(model, batch)
-    loss.backward()
+    loss = loss_and_grads(model, loss_fn, batch, group["params"], mesh)
     torch.nn.utils.clip_grad_norm_(group["params"], cfg.grad_clip)
     opt.step()
-    return loss.detach()
+    return loss
 
 
 def lr_schedule(cfg: TrainConfig, steps_per_epoch: int, round_idx: int = 0):
@@ -89,12 +127,14 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int, round_idx: int = 0):
 
 
 def fit(model, buf: RingBuffer, loss_fn, cfg: TrainConfig, gen: torch.Generator,
-        round_idx: int = 0):
-    """A full fine-tune round on one device: `epochs` passes of shuffled
-    batches of the buffer, with a fresh optimizer state (as the
-    reference's per-round engine). Updates the model's trainable
-    parameters in place; the frozen ones stop requiring grad for the round.
-    Returns the mean loss of each epoch."""
+        round_idx: int = 0, mesh=None):
+    """A full fine-tune round: `epochs` passes of shuffled batches of the
+    buffer, with a fresh optimizer state (as the reference's per-round
+    engine). Updates the model's trainable parameters in place; the frozen
+    ones stop requiring grad for the round. With a `mesh`, each batch is
+    split over its ranks (the module docstring says how); every rank must
+    pass the same buffer and an equally seeded `gen`. Returns the mean loss
+    of each epoch."""
     size = int(buf.size)
     if size == 0:
         raise ValueError(
@@ -116,7 +156,7 @@ def fit(model, buf: RingBuffer, loss_fn, cfg: TrainConfig, gen: torch.Generator,
             for b in range(steps_per_epoch):
                 batch = gather_batch(buf, idx[b])
                 losses.append(
-                    train_step(model, opt, loss_fn, batch, schedule(step), cfg)
+                    train_step(model, opt, loss_fn, batch, schedule(step), cfg, mesh)
                 )
                 step += 1
             epoch_losses.append(float(torch.stack(losses).mean()))
@@ -135,3 +175,7 @@ def rift_loss_fn(model, batch):
     return rift_loss(
         out["probability"], r_pad, batch["old_logits"], batch["advantage"], batch["valid"]
     )
+
+
+# the count rift_loss divides by: the batch's valid candidates (at least 1)
+rift_loss_fn.normaliser = lambda batch: torch.clamp(batch["valid"].sum(), min=1)

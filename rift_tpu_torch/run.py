@@ -52,8 +52,13 @@ a run directory under `<out_dir>/<mode>/<tag>/runs` (utils/tracking.py);
 `--seed` seeds the scenes and the recognizer, not the policies (their
 configs' `seed`), and `--resume` outside eval and collect_data restores
 nothing: the run starts again at episode 0. Everything runs on CUDA unless
-`--device cpu`. Not ported yet (ROADMAP.md): `--render`, and
-`--repetitions` (parsed, and read by neither CLI).
+`--device cpu`. `--repetitions` is parsed and read by neither CLI.
+
+`--render` (eval and train_cbv; it runs the per-tick loop) records a BEV
+video of scenario 0 per episode, `<out_dir>/<mode>/<tag>/video_ep<N>/
+ep<N>.mp4` (a GIF without cv2) and `ep<N>_last.png`, a frame every 5
+ticks with the route, the executed CBV trajectories in the world frame
+and the route's weather (viz/render.py); it needs matplotlib and Pillow.
 """
 
 from __future__ import annotations
@@ -160,6 +165,48 @@ def _step_kwargs(ego_out, cbv_out) -> dict:
     elif "ctrl" in cbv_out:
         kw["cbv_ctrl"], kw["cbv_ctrl_mask"] = cbv_out["ctrl"], cbv_out["mask"]
     return kw
+
+
+def world_frame_candidates(cbv_out, prev_state, scenario: int = 0):
+    """The executed CBV trajectories of one scenario in the world frame, on
+    the host: each masked CBV's local waypoints `traj` [K, T, 2] rotated by
+    its heading and moved to its position in the state they were planned
+    from. None when the policy gives no waypoints or no CBV acts."""
+    if "traj" not in cbv_out:
+        return None
+    mask = cbv_out["mask"][scenario]
+    if not bool(mask.any()):
+        return None
+    tr = cbv_out["traj"][scenario][mask]
+    hd = prev_state.heading[scenario][mask][:, None]
+    ps = prev_state.pos[scenario][mask][:, None]
+    c, s = torch.cos(hd), torch.sin(hd)
+    world = torch.stack([tr[..., 0] * c - tr[..., 1] * s + ps[..., 0],
+                         tr[..., 0] * s + tr[..., 1] * c + ps[..., 1]], dim=-1)
+    return world.cpu().numpy()
+
+
+def render_observer(env, spec, recorder, weather=None):
+    """An `on_tick` observer that hands scenario 0 to `recorder` on its
+    capture ticks, with the ego's route, the executed CBV trajectories in
+    the world frame and the weather at the ego's route progress. The tick
+    is the host's (`env.tick`), so the other ticks read nothing back from
+    the device."""
+    route = spec.ego_route[0, :int(spec.ego_route_len[0]), :2].cpu().numpy()
+
+    def on_tick(prev_state, state, crit_now, ego_out, cbv_out):
+        tick = env.tick
+        if not recorder.keeps(tick):
+            return
+        w = None
+        if weather is not None:
+            pct = 100.0 * float(state.ego_route_cursor[0]) / max(float(spec.ego_route_len[0]),
+                                                                1.0)
+            w = weather.at(pct)
+        recorder.maybe_capture(state, 0, tick=tick, route=route,
+                               candidates=world_frame_candidates(cbv_out, prev_state), weather=w)
+
+    return on_tick
 
 
 def _ego_act(ego, spec, state, train):
@@ -396,6 +443,10 @@ def parse_args(argv=None):
     p.add_argument("--no_fused", action="store_true",
                    help="force the per-tick host loop (debugging); by "
                         "default eval/train_cbv run fused chunks")
+    p.add_argument("--render", action="store_true",
+                   help="record a BEV video of scenario 0 with the executed CBV "
+                        "trajectories overlaid (eval and train_cbv, per tick; needs "
+                        "matplotlib and Pillow)")
     p.add_argument("--device", default="cuda", help="'cpu' to run on the CPU")
     p.add_argument("overrides", nargs="*", help="hydra-style key=value")
     return p.parse_args(argv)
@@ -540,7 +591,7 @@ def main(argv=None):
     train_cbv = args.mode == "train_cbv"
     ego_is_rl = getattr(ego, "type", "") == "rl"
     cbv_is_classic_rl = getattr(cbv, "type", "") == "rl"
-    can_fuse = (not args.no_fused and args.mode in ("eval", "train_cbv")
+    can_fuse = (not args.no_fused and not args.render and args.mode in ("eval", "train_cbv")
                 and not cbv_is_classic_rl and ego.name in FUSED_EGO_KIND)
     trainable = train_cbv and hasattr(cbv, "buffer_full")
     # one run directory per invocation (the reference's offline tracking)
@@ -616,9 +667,19 @@ def main(argv=None):
                 cbv.save(ckpt, ep)
                 mark("save")
         else:
+            on_tick = recorder = None
+            if args.render:
+                from .viz import VideoRecorder
+
+                recorder = VideoRecorder(env.tmap, os.path.join(out_dir, f"video_ep{ep}"),
+                                         every_n_ticks=5)
+                on_tick = render_observer(env, spec, recorder,
+                                          batch_cfgs[0].weather if batch_cfgs else None)
             pre_size = _buf_size(cbv)
             state, crit = run_episode(env, ego, cbv, state, crit, spec, args.max_ticks,
-                                      train=train_cbv)
+                                      train=train_cbv, on_tick=on_tick)
+            if recorder is not None:
+                print(f"episode {ep}: wrote {recorder.save(f'ep{ep}')}")
             if train_cbv:
                 empty_streak = _check_new_samples(cbv, pre_size, ep, empty_streak)
             if trainable and cbv.buffer_full():

@@ -123,8 +123,8 @@ def test_run_train_cbv_then_eval_resume(tmp_path, capsys, monkeypatch):
     with pytest.raises(KeyError, match="no ego policy 'carla_autopilot'"):
         run.main(["--mode", "train_ego", "--ego_cfg", "carla_autopilot", "--device", "cpu",
                   "--out_dir", out])
-    with pytest.raises(SystemExit):  # --render is not ported yet: argparse refuses it
-        run.main(["--mode", "eval", "--render", "--device", "cpu"])
+    # --render is a flag of the CLI (its run: test_torch_render.py::test_cli_render)
+    assert run.parse_args(["--mode", "eval", "--render"]).render
 
 
 def test_run_eval_with_the_defaults(tmp_path, monkeypatch):

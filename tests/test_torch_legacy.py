@@ -1,7 +1,7 @@
 """The port's Pluto on legacy per-CBV tokens (the JAX package's default)
-against the JAX package's, on the CPU: the features, the model's forward,
-the eval and train act steps, and one fit step's loss and gradients on
-the train act's buffered samples. Same seeded weights (written by the JAX
+against the JAX package's, on the CPU: the features and the eval and train
+act steps (the model's forward and a fit step: test_torch_legacy_fit.py,
+on the same scene). Same seeded weights (written by the JAX
 package's `save_params_npz`, loaded strictly by `load_jax_params`: the
 legacy branches read the parameter tree the canonical ones do), the scene
 of test_torch_train.py (grid town, S=2, A=6, CBVs on slots 1 and 2), f32
@@ -14,15 +14,8 @@ Tolerances:
   positions differ by up to 2 ulps (1.5e-5 observed) and the orientation
   of a short segment vector, which is the difference of two such
   positions, by up to 2.8e-5 (observed);
-- the forward 1e-3 (atol and rtol, through ~30 chained layers, as the
-  canonical forward's test); in bf16 8e-2 (the canonical bf16 test's
-  bound; observed 0.03);
 - the act steps: masks, slots and chosen candidates exactly, continuous
-  outputs 1e-3 (atol and rtol), as test_torch_train.py;
-- the fit step: the RIFT loss 1e-5; the gradient of every parameter
-  within 1e-6 + 1e-4 of its largest element (atol; products summed in
-  another order through the whole model: observed 8.7e-7 on gradients of
-  up to 0.09).
+  outputs 1e-3 (atol and rtol), as test_torch_train.py.
 """
 
 import jax
@@ -35,16 +28,14 @@ from rift_tpu.map import make_grid_town as jax_grid_town
 from rift_tpu.models.pluto import PlutoModel as JaxPluto
 from rift_tpu.models.pluto import build_cbv_features as jax_build_features
 from rift_tpu.models.pluto.policy import pluto_cbv_act as jax_act
-from rift_tpu.rl.losses import rift_loss as jax_rift_loss
 from rift_tpu.scenario import TrafficEnv as JaxTrafficEnv
 from rift_tpu.scenario import cbv_slot_assignment as jax_slots
 from rift_tpu.scenario import wake_all_bvs as jax_wake
 from rift_tpu.utils.params_io import save_params_npz
 from rift_tpu_torch.models.pluto import PlutoModel, build_cbv_features, pluto_cbv_act
-from rift_tpu_torch.rl import TrainConfig, fit, rift_loss_fn, ring_append, ring_init
 from rift_tpu_torch.scenario import cbv_slot_assignment
 from rift_tpu_torch.utils.params_io import flatten_params, load_jax_params, load_params_npz
-from test_torch_pluto import _seeded_params, _to_torch
+from test_torch_pluto import _seeded_params
 from test_torch_train import _flat
 from torch_parity import (
     map_from_jax,
@@ -64,8 +55,11 @@ def _model(flat, dtype=torch.float32):
     return model
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def legacy_scene(tmp_path_factory):
+    """The grid-town scene (S=2, A=6, CBVs on slots 1 and 2, a four-tick
+    history stepped by the port's env), its legacy features as the JAX
+    batch, the seeded depth-1 parameters in both frameworks, the port's
+    map, state and spec. Shared with test_torch_legacy_fit.py."""
     jmap = jax_grid_town(blocks=1, num_lanes=2)
     env = JaxTrafficEnv(jmap, num_scenarios=S, num_agents=A, max_cbvs=C, seed=3)
     jstate, crit, jspec = env.reset()
@@ -86,19 +80,27 @@ def world(tmp_path_factory):
     flat = flatten_params(load_params_npz(path))
     tmap = map_from_jax(jmap)
     state, spec = state_from_jax(jstate), spec_from_jax(jspec)
-    model = _model(flat)
+    return dict(jmap=jmap, jstate=jstate, jspec=jspec, jmodel=jmodel, params=params,
+                batch=batch, flat=flat, tmap=tmap, state=state, spec=spec, model=_model(flat))
 
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The scene of `legacy_scene` with both act steps on it, the JAX
+    package's and the port's, eval and train."""
+    w = legacy_scene(tmp_path_factory)
+    jmodel, params, jmap, jspec, jstate = (w[k] for k in ("jmodel", "params", "jmap", "jspec",
+                                                          "jstate"))
     ref_eval = jax_act(jmodel, params, jmap, jspec, jstate, max_cbvs=C)
     # the train act compiled without XLA's fusion pass, as test_torch_train
     # does (about half the compile time, outputs within 2.1e-5)
     act = jax_act.lower(jmodel, params, jmap, jspec, jstate, max_cbvs=C, train=True).compile(
         {"xla_disable_hlo_passes": "fusion"})
     ref_train = act(params, jmap, jspec, jstate)
-    got_eval = pluto_cbv_act(model, tmap, spec, state, max_cbvs=C)
-    got_train = pluto_cbv_act(model, tmap, spec, state, max_cbvs=C, train=True)
-    return dict(jmap=jmap, jstate=jstate, jspec=jspec, jmodel=jmodel, params=params,
-                batch=batch, flat=flat, tmap=tmap, state=state, spec=spec, model=model,
-                ref_eval=ref_eval, ref_train=ref_train, got_eval=got_eval,
+    got_eval = pluto_cbv_act(w["model"], w["tmap"], w["spec"], w["state"], max_cbvs=C)
+    got_train = pluto_cbv_act(w["model"], w["tmap"], w["spec"], w["state"], max_cbvs=C,
+                              train=True)
+    return dict(w, ref_eval=ref_eval, ref_train=ref_train, got_eval=got_eval,
                 got_train=got_train)
 
 
@@ -144,26 +146,6 @@ def test_legacy_features_match(world):
     assert jax.tree.map(lambda x: x.shape, canon) == legacy
 
 
-def test_legacy_forward_matches(world):
-    """The full forward on the legacy batch, aux head included, f32; then
-    bf16, whose legacy map tokens come out in f32 as the JAX package's (the
-    unknown-speed embedding is an f32 parameter)."""
-    ref = jax.jit(world["jmodel"].apply)(world["params"], world["batch"])
-    with torch.no_grad():
-        got = world["model"](_to_torch(world["batch"]))
-    for k in ("probability", "trajectory", "output_ref_free_trajectory", "hidden",
-              "output_prediction", "output_trajectory"):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-3, rtol=1e-3,
-                                   err_msg=k)
-    ref16 = jax.jit(JaxPluto(encoder_depth=DEPTH, decoder_depth=DEPTH).apply)(
-        world["params"], world["batch"])
-    with torch.no_grad():
-        got16 = _model(world["flat"], torch.bfloat16)(_to_torch(world["batch"]))
-    for k in ("probability", "trajectory", "hidden"):
-        np.testing.assert_allclose(got16[k].numpy(), np.asarray(ref16[k]), atol=8e-2,
-                                   err_msg=k)
-
-
 @pytest.mark.parametrize("mode", ["eval", "train"])
 def test_legacy_act_matches(world, mode):
     """pluto_cbv_act on legacy tokens (no shared block, no map tokens),
@@ -182,45 +164,3 @@ def test_legacy_act_matches(world, mode):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-3, rtol=1e-3,
                                    err_msg=k)
     _assert_tree_close(ref["features"], got["features"], atol=1e-4)
-
-
-def test_legacy_fit_step_matches(world):
-    """The RIFT loss of a batch of the train act's legacy samples and its
-    gradient w.r.t. every parameter against jax.value_and_grad; then a
-    `fit` round on a full buffer of them moves pi_head and nothing else."""
-    ref, got = world["ref_train"], world["got_train"]
-    jbatch = {"features": _flat(ref["features"]), "old_logits": _flat(ref["old_logits"]),
-              "advantage": _flat(ref["advantage"]), "valid": _flat(ref["adv_valid"])}
-    jmodel = world["jmodel"]
-
-    def loss_fn(p):
-        out = jmodel.apply(p, jbatch["features"])
-        r_pad = ~jbatch["features"]["reference_line"]["valid_mask"].any(-1)
-        return jax_rift_loss(out["probability"], r_pad, jbatch["old_logits"],
-                             jbatch["advantage"], jbatch["valid"])
-
-    jloss, jgrad = jax.jit(jax.value_and_grad(loss_fn))(world["params"])
-    want = _model(flatten_params(jax.tree.map(np.asarray, jgrad)))
-    model = _model(world["flat"])
-    loss = rift_loss_fn(model, _to_torch(jbatch))
-    loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=1e-5)
-    want = dict(want.named_parameters())
-    for name, p in model.named_parameters():
-        w = want[name].detach().numpy()
-        g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
-        np.testing.assert_allclose(g, w, atol=1e-6 + 1e-4 * np.abs(w).max(), err_msg=name)
-    assert np.abs(want["planning_decoder.pi_head.Dense_1.weight"].detach().numpy()).max() > 0
-
-    samples = {"features": _flat(got["features"]), "old_logits": _flat(got["old_logits"]),
-               "advantage": _flat(got["advantage"]), "valid": _flat(got["adv_valid"])}
-    first = lambda t: {k: first(v) for k, v in t.items()} if isinstance(t, dict) else t[0]
-    buf = ring_init(first(samples), capacity=4)
-    ring_append(buf, samples, _flat(got["cbv_slots"] >= 0).reshape(-1))
-    assert buf.full
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    losses = fit(model, buf, rift_loss_fn, TrainConfig(epochs=2, warmup_epochs=1, batch_size=2),
-                 torch.Generator().manual_seed(0))
-    assert np.isfinite(losses).all()
-    moved = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), before[n])]
-    assert moved and all(n.startswith("planning_decoder.pi_head") for n in moved)
