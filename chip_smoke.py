@@ -11,7 +11,8 @@ recognition; then the per-tick loop with raw controls, classic PPO and
 train_ego; then data collection, PlanT's behaviour-cloning fit and the
 Pluto checkpoint converter; then the E2E camera egos (vad, uniad,
 sparsedrive), their behaviour-cloning fit and their CLI; then the Runner
-sharded over two ranks and `--render`.
+sharded over two ranks and `--render`; then the experiment protocols and
+result tools (rift_tpu_torch/tools).
 
     python3 chip_smoke.py
 
@@ -186,7 +187,22 @@ Phases (any failure raises and exits non-zero):
      `--render`: with matplotlib `run.main --render` for 10 ticks at S=4 and
      its files, without it the ImportError that names it; and the
      observer's world-frame candidates on the card against their host
-     recomputation.
+     recomputation;
+ 20. the experiment protocols and result tools (rift_tpu_torch/tools): the
+     quality protocol on phase 14's route file, `--smoke` as fresh
+     processes a stage in the background, while this process runs its
+     stages at TOOLS_ARGS (the smoke scale with 24 agents; each train_cbv
+     run given a 16-sample buffer, so that it fits a round) through
+     `run.main` with exact launches per stage (40 train acts and a fit
+     round of 16 steps in each train_cbv stage, bc_pluto's through the
+     stage kernel: 3 launches a step; 40 eval acts for pluto and
+     rift_pluto, none for standard); the bc_pluto fit moving every
+     HistoryEncoder tensor from the weights as built; each run's pretrain,
+     tuned npz (moved by its fit), 3 eval rows, merged "±" table,
+     check_eval, and the fitted run's RESULTS.md;
+     `topology_eval --ticks 150` with that pretrain (both rows, the pluto
+     row's launches exact); `ego_zoo_experiment --smoke`, whole with h5py,
+     else the ImportError that names it at stage 1.
 
 Prints the measurements, the card line and a `kernels` JSON line before
 the last line, and `{"ok": true, "device": {...}}` last. Exits non-zero
@@ -2896,6 +2912,271 @@ def shard_and_render(torch, tmap, counters, scene):
     return out, launches
 
 
+# phase 20: the quality protocol at its smoke scale (2 scenarios, 40 train
+# and eval ticks, one episode a stage) with the bench's 24 agents, whose
+# rule recognition finds CBVs by tick 40 (at --smoke's 8 it finds none, and
+# nothing fits); its train_cbv runs get a buffer of TOOLS_BUFFER samples,
+# which the second chunk of 20 ticks fills: each fits one round of 16 steps
+TOOLS_ARGS = ["--num_scenario", "2", "--num_agents", str(A), "--train_scenarios", "2",
+              "--pretrain_episodes", "1", "--finetune_episodes", "1", "--train_ticks", "40",
+              "--eval_ticks", "40", "--eval_episodes", "1", "--methods", "rift_pluto",
+              "--seeds", "0"]
+TOOLS_BUFFER = 16
+HISTORY_ENCODER_KEY = "/HistoryEncoder_0/"  # its tensors in a pretrain npz
+TOOLS_ROWS = ("standard", "pluto", "rift_pluto")  # the eval matrix at seed 0
+TOPOLOGY_TICKS = 150
+
+
+def tool_process(args, log_path, cwd):
+    """`python -m <args>` started in the background, its output to
+    `log_path`, with two intra-op threads: it and this process share the
+    host's cores, and torch's default pools, one thread a core each, spin
+    against each other."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    with open(log_path, "w") as log:
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=cwd, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def wait_tool(proc, log_path, timeout):
+    """Wait for a tool_process; its exit code must be 0. Returns the
+    seconds of each of its `run.py` processes, from the log."""
+    import re
+
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        log = f.read()
+    if rc != 0:
+        raise AssertionError(f"{log_path}: exit {rc}\n{log[-4000:]}")
+    return [int(x) for x in re.findall(r"^=== done in (\d+)s$", log, re.M)]
+
+
+def quality_outputs(np, check_eval, out_dir, tuned_differs=True):
+    """Phase 20's checks of one quality-protocol run: the stage-1 pretrain
+    written, the tuned rift_pluto npz (different from it, if asked), the
+    eval matrix's 3 rows at seed 0 with records, "±" entries in
+    merged.json, and the port's check_eval passing on the eval dir.
+    Returns what it read."""
+    import os
+
+    art = os.path.join(out_dir, "artifacts")
+    pre, tuned = (np.load(os.path.join(art, f)) for f in ("pluto_pretrain.npz",
+                                                         "rift_pluto.npz"))
+    moved = sorted(k for k in pre.files if not np.array_equal(pre[k], tuned[k]))
+    if sorted(pre.files) != sorted(tuned.files) or (tuned_differs and not moved):
+        raise AssertionError(f"{out_dir}: the tuned npz moves {len(moved)} tensors")
+    base = os.path.join(out_dir, "eval", "eval")
+    rows = {}
+    for cbv in TOOLS_ROWS:
+        with open(os.path.join(base, f"pdm_lite-{cbv}-seed0", "simulation_results.json")) as f:
+            rows[cbv] = len(json.load(f)["records"])
+    if sorted(os.listdir(base)) != sorted(f"pdm_lite-{c}-seed0" for c in TOOLS_ROWS) or \
+            not all(rows.values()):
+        raise AssertionError(f"{out_dir}: eval rows {sorted(os.listdir(base))}, records {rows}")
+    with open(os.path.join(out_dir, "merged.json")) as f:
+        merged = json.load(f)
+    if sorted(merged) != sorted(f"pdm_lite-{c}" for c in TOOLS_ROWS) or \
+            not all("±" in row["Driving Score"] for row in merged.values()):
+        raise AssertionError(f"{out_dir}: merged table {merged}")
+    if check_eval.main(["--base_dir", base, "--expected_routes", "2"]) != len(TOOLS_ROWS):
+        raise AssertionError(f"{out_dir}: check_eval")
+    return {"tensors_tuned": len(moved), "tensors": len(pre.files), "records": rows,
+            "driving_score": {k: v["Driving Score"] for k, v in merged.items()}}
+
+
+def results_table(path):
+    """The first table of a quality RESULTS.md: its header and one row of
+    one seed per CBV of the eval matrix, RIFT last."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith("| CBV method | seeds"))
+    rows = lines[start + 2:start + 2 + len(TOOLS_ROWS) + 1]
+    names = [row.split(" | ")[0][2:] for row in rows[:-1]]
+    if names != ["standard", "pluto", "**RIFT (ours)**"] or rows[-1] or \
+            not all(row.split(" | ")[1] == "1" for row in rows[:-1]):
+        raise AssertionError(f"{path}: table rows {rows}")
+    return rows[:-1]
+
+
+def tools_path(torch, counters, route_file):
+    """Phase 20: the experiment protocols and result tools
+    (rift_tpu_torch/tools). (a) The quality protocol as a user runs it,
+    `quality_experiment --smoke`, a fresh process a stage, in the background
+    while this process runs it at TOOLS_ARGS with `run_cli` calling
+    `run.main` here, each train_cbv stage with a buffer of TOOLS_BUFFER so
+    that it fits, the counters read around each stage: exact launches per
+    stage (train acts and fit steps, the bc_pluto fit through the stage
+    kernel); the bc_pluto fit moving every HistoryEncoder tensor from the
+    policy's weights as built; each run's pretrain, tuned npz, eval rows,
+    merged table and check_eval (quality_outputs), and the RESULTS.md.
+    (b) `topology_eval --ticks 150` with this run's pretrain: both rows,
+    the pluto row's launches exact. (c) `ego_zoo_experiment --smoke`: whole
+    with h5py, else the ImportError that names it at stage 1."""
+    import importlib.util
+    import os
+    import shutil
+
+    import numpy as np
+
+    from rift_tpu_torch import policies, run
+    from rift_tpu_torch.tools import check_eval, ego_zoo_experiment, quality_experiment
+    from rift_tpu_torch.tools import topology_eval
+    from rift_tpu_torch.utils.params_io import jax_flat_params
+
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "chip_smoke_tools")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    tool = "rift_tpu_torch.tools.quality_experiment"
+    smoke_log = os.path.join(base, "smoke.log")
+    proc = tool_process([tool, "--smoke", "--routes", route_file, "--out",
+                         os.path.join(base, "smoke")], smoke_log, here)
+    try:
+        # the stages at TOOLS_ARGS here, through run.main, a stage's counters
+        # apiece; the bc_pluto policy's weights as built
+        chunks, stages, built = [], [], {}
+        rollout_chunk = run.rollout_chunk
+
+        def counted_chunk(*a, **kw):
+            if kw["with_policy"]:
+                chunks.append((kw["num_steps"], kw["train"]))
+            return rollout_chunk(*a, **kw)
+
+        def run_here(argv, cpu=False):  # quality_experiment.run_cli's signature
+            key = argv[argv.index("--cbv_cfg") + 1]
+            mode = argv[argv.index("--mode") + 1]
+            if mode == "train_cbv":
+                argv = [*argv, f"buffer_capacity={TOOLS_BUFFER}"]
+            chunks.clear()
+            zero_launches(counters)
+            # copies: on the CPU the flat arrays would share the parameters' memory
+            snapshot = (lambda p: {k: v.copy() for k, v in jax_flat_params(p.model).items()}) \
+                if key == "bc_pluto" else (lambda p: None)
+            with recording(policies.CBV_POLICY_LIST, key, snapshot) as made:
+                run.main(argv)
+            torch.cuda.synchronize()
+            got = read_launches(counters)
+            pol, built[key] = made[0]
+            want = add(*[act_launches(n, train=train, legacy=True) for n, train in chunks]) \
+                if chunks else {k: 0 for k in got}
+            rounds = getattr(pol, "train_rounds", 0)
+            if rounds:
+                cfg = pol.train_cfg
+                steps = cfg.epochs * max(pol.buffer_capacity // cfg.batch_size, 1)
+                want = add(want, fit_launches(rounds * steps, encoder_trains=key == "bc_pluto"))
+            stages.append({"mode": mode, "cbv": key, "ticks": sum(n for n, _ in chunks),
+                           "fit_rounds": rounds, "launches": got})
+            launches[f"quality_{mode}_{key}"] = got
+            check_counts(f"quality {mode} {key}", got, want)
+
+        run_cli = quality_experiment.run_cli
+        run.rollout_chunk = counted_chunk
+        quality_experiment.run_cli = run_here
+        try:
+            t1 = time.perf_counter()
+            here_dir = os.path.join(base, "here")
+            quality_experiment.main(["--routes", route_file, "--out", here_dir,
+                                     "--results_dir", os.path.join(base, "here_results"),
+                                     *TOOLS_ARGS])
+            out["quality_here_s"] = time.perf_counter() - t1
+        finally:
+            run.rollout_chunk = rollout_chunk
+            quality_experiment.run_cli = run_cli
+        want_stages = [("train_cbv", "bc_pluto", 40, 1), ("train_cbv", "rift_pluto", 40, 1),
+                       ("eval", "standard", 0, 0), ("eval", "pluto", 40, 0),
+                       ("eval", "rift_pluto", 40, 0)]
+        got_stages = [(st["mode"], st["cbv"], st["ticks"], st["fit_rounds"]) for st in stages]
+        if got_stages != want_stages:
+            raise AssertionError(f"quality stages {got_stages}, expected {want_stages}")
+        out["quality_stages"] = stages
+        out["quality_here"] = quality_outputs(np, check_eval, here_dir)
+        out["results_table"] = results_table(os.path.join(base, "here_results", "RESULTS.md"))
+        # the pretrain against the bc_pluto policy's weights as built: its fit
+        # (the stage kernel's backward) moves every HistoryEncoder tensor
+        init = built["bc_pluto"]
+        pre = np.load(os.path.join(here_dir, "artifacts", "pluto_pretrain.npz"))
+        moved = {k for k in init if not np.array_equal(init[k], pre[k])}
+        encoder = [k for k in init if HISTORY_ENCODER_KEY in k]
+        if sorted(pre.files) != sorted(init) or not encoder or \
+                not moved.issuperset(encoder):
+            raise AssertionError(f"bc_pluto pretrain: {len(moved)} of {len(init)} tensors "
+                                 f"moved, HistoryEncoder unmoved "
+                                 f"{sorted(set(encoder) - moved)}")
+        out["pretrain_moved"] = {"tensors_moved": len(moved), "tensors": len(init),
+                                 "history_encoder_tensors": len(encoder)}
+
+        # (b) the topology eval with the pretrain just made
+        topo = {}
+        run_one, chunk_fn = topology_eval.run_one, topology_eval.rollout_chunk
+
+        def counted_run_one(tmap, routes, paths, cbv_name, args):
+            chunks.clear()
+            zero_launches(counters)
+            res = run_one(tmap, routes, paths, cbv_name, args)
+            torch.cuda.synchronize()
+            topo[cbv_name] = (read_launches(counters), sum(n for n, _ in chunks))
+            return res
+
+        def topo_chunk(*a, **kw):
+            chunks.append((kw["num_steps"], kw["train"]))
+            return chunk_fn(*a, **kw)
+
+        topology_eval.run_one, topology_eval.rollout_chunk = counted_run_one, topo_chunk
+        try:
+            t1 = time.perf_counter()
+            topology_eval.main(["--ticks", str(TOPOLOGY_TICKS), "--pretrain",
+                                os.path.join(here_dir, "artifacts", "pluto_pretrain.npz"),
+                                "--out", os.path.join(base, "topology")])
+            out["topology_s"] = time.perf_counter() - t1
+        finally:
+            topology_eval.run_one, topology_eval.rollout_chunk = run_one, chunk_fn
+        with open(os.path.join(base, "topology", "topology.json")) as f:
+            rows = json.load(f)["rows"]
+        if sorted(rows) != ["pluto", "standard"] or sorted(topo) != ["pluto", "standard"]:
+            raise AssertionError(f"topology rows {sorted(rows)}, runs {sorted(topo)}")
+        for name, (got, ticks) in topo.items():
+            launches[f"topology_{name}"] = got
+            check_counts(f"topology {name}", got,
+                         act_launches(ticks if name == "pluto" else 0, legacy=True))
+        out["topology"] = {name: {"ticks": topo[name][1], "verify": r["verify"],
+                                  "avg_driving_score": r["stats"].get("avg_driving_score")}
+                           for name, r in rows.items()}
+
+        # (c) the ego zoo at its smoke scale
+        t1 = time.perf_counter()
+        zoo_argv = ["--smoke", "--routes", route_file, "--out", os.path.join(base, "ego_zoo"),
+                    "--quality_artifacts", os.path.join(here_dir, "artifacts"),
+                    "--results_dir", os.path.join(base, "ego_zoo_results")]
+        try:
+            ego_zoo_experiment.main(zoo_argv)
+            out["ego_zoo"] = "ran whole"
+        except ImportError as e:
+            if "h5py" not in str(e) or importlib.util.find_spec("h5py") is not None:
+                raise
+            out["ego_zoo"] = f"ImportError at stage 1: {e}"
+        out["ego_zoo_s"] = time.perf_counter() - t1
+
+        # (a) the run of fresh processes a stage
+        out["quality_smoke_run_s"] = wait_tool(proc, smoke_log, timeout=600)
+        out["quality_smoke"] = quality_outputs(np, check_eval, os.path.join(base, "smoke"),
+                                               tuned_differs=False)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -3167,6 +3448,12 @@ def main() -> int:
     launches.update(shard_launches)
     print(f"# shard path and render done {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
+    # ---- phase 20: the experiment protocols and result tools
+    tools, tools_launches = tools_path(torch, counters, route_file)
+    launches.update(tools_launches)
+    print(f"# tools done {time.perf_counter() - t0:.1f}s (phase 20 {tools['seconds']:.1f}s)",
+          file=sys.stderr)
+
     kernels = []
     sources = {
         "fused_attention": ("rift_tpu_torch/csrc/attention.cu", "rift_tpu/ops/attention.py:78"),
@@ -3219,6 +3506,7 @@ def main() -> int:
         "collect_and_plant": collect,
         "e2e_egos": e2e,
         "shard_and_render": shard,
+        "tools": tools,
         "gradient_max_abs_err": grad_err,
         "seconds_total": time.perf_counter() - t0,
     }))

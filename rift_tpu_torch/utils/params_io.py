@@ -142,7 +142,9 @@ def jax_flat_params(model: nn.Module) -> dict:
     query/key/value [in, H, Dh] with bias [H, Dh], out [H, Dh, out]); a
     Conv2d's weight OIHW the flax kernel HWIO; LayerNorm weights become
     `scale`, Embedding weights `embedding`; a PointsEncoder's params sit
-    under the `flat` child that flax adds for batched input."""
+    under the `flat` child that flax adds for batched input. An f32
+    parameter on the CPU that needs no transpose comes back as a view of
+    its memory: copy the arrays to keep a snapshot across updates."""
     from ..models.e2e.model import MultiHeadDotProductAttention
     from ..models.pluto.layers import Attention, PointsEncoder
 

@@ -11,10 +11,11 @@ them when asked for another; the trainable sets and optimizer settings
 are the JAX policies', and the defaults (the token convention, the
 Runner's fields, the CLI's flags) the JAX package's. (The pretrain npz
 round trip between the packages is in test_torch_pluto.py, on its seeded
-model.)
+model.) The losses of the other keys are in test_torch_policies_losses.py
+and test_torch_policies_zoo.py, with `_teacher_label` and the registries;
+the defaults in test_torch_policies_defaults.py.
 """
 
-import dataclasses
 import types
 
 import jax
@@ -24,11 +25,7 @@ import pytest
 import torch
 
 from rift_tpu import policies as jpolicies
-from rift_tpu.runner import RunnerConfig as JaxRunnerConfig
-from rift_tpu import run as jax_run
-from rift_tpu_torch import policies, run
-from rift_tpu_torch.runner import Runner, RunnerConfig
-from rift_tpu_torch.utils.config import apply_overrides, load_config
+from rift_tpu_torch import policies
 from torch_parity import one_torch_thread
 
 BS, R, M, F, P = 6, 3, 4, 80, 5
@@ -77,8 +74,7 @@ class _JaxStub:
         return params
 
 
-@pytest.mark.parametrize("key", FINE_TUNED)
-def test_loss_fn_matches_jax(key):
+def loss_fn_matches_jax(key):
     out, ref, batch = _given()
     jpol = jpolicies.CBV_POLICY_LIST[key](None, {})
     jpol.model = _JaxStub()
@@ -99,73 +95,9 @@ def test_loss_fn_matches_jax(key):
                                    err_msg=k)
 
 
-def test_teacher_label_and_registry():
-    out, _, batch = _given(1)
-    r_pad = ~batch["features"]["reference_line"]["valid_mask"].any(-1)
-    for pos in (batch["teacher_pos"], None):
-        want = jpolicies._teacher_label(
-            jnp.asarray(out["probability"]), jnp.asarray(r_pad), jnp.asarray(out["trajectory"]),
-            jnp.asarray(batch["teacher_speed"]), None if pos is None else jnp.asarray(pos))
-        got = policies._teacher_label(
-            torch.from_numpy(out["probability"]), torch.from_numpy(r_pad),
-            torch.from_numpy(out["trajectory"]), torch.from_numpy(batch["teacher_speed"]),
-            None if pos is None else torch.from_numpy(pos))
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-    assert set(policies.CBV_POLICY_LIST) == {"standard", "pluto", *FINE_TUNED, "ppo", "frea",
-                                             "fppo_rs"} == set(jpolicies.CBV_POLICY_LIST)
-    assert set(policies.EGO_POLICY_LIST) == set(jpolicies.EGO_POLICY_LIST)
-    with pytest.raises(KeyError, match="pdm_lite"):
-        policies.EGO_POLICY_LIST["carla_autopilot"]
-    with pytest.raises(KeyError, match="sparsedrive"):
-        policies.EGO_POLICY_LIST["e2e"]
-    for name, cls in policies.CBV_POLICY_LIST.items():
-        assert cls.name == jpolicies.CBV_POLICY_LIST[name].name == name
-        assert cls.type == jpolicies.CBV_POLICY_LIST[name].type
-    for name, cls in policies.EGO_POLICY_LIST.items():
-        assert cls.name == jpolicies.EGO_POLICY_LIST[name].name == name
-        assert cls.type == jpolicies.EGO_POLICY_LIST[name].type
-        assert run.FUSED_EGO_KIND.get(name) == jax_run.FUSED_EGO_KIND.get(name)
-    for key in ("pluto", "rift_pluto", "ppo_pluto", "bc_pluto"):
-        trainable = policies.CBV_POLICY_LIST[key](CPU_MAP, CANONICAL_SMALL)
-        jtrain = jpolicies.CBV_POLICY_LIST[key](None, {})
-        if key != "pluto":
-            assert trainable.train_cfg.trainable_prefixes == jtrain.train_cfg.trainable_prefixes
-            assert trainable.train_cfg.lr == jtrain.train_cfg.lr
-            assert trainable.train_cfg.grad_clip == jtrain.train_cfg.grad_clip
-        assert trainable.execute_teacher == jtrain.execute_teacher
-
-
-def test_defaults_equal_the_jax_defaults():
-    """The JAX package runs Pluto on legacy per-CBV tokens unless a config
-    sets `canonical_tokens` (no shipped config does) or the Runner's
-    `canonical`; so does the port, which computes map tokens only for
-    canonical tokens. The fields the two RunnerConfigs share default
-    alike, and the port's own (ego, walkers, statics) default to what the
-    JAX Runner runs. The CLI's defaults are the JAX CLI's: the pdm_lite
-    ego and, in eval, 2 walkers and 2 statics (-1: by mode)."""
-    jpol = jpolicies.CBV_POLICY_LIST["rift_pluto"](None, {})
-    assert "canonical_tokens" not in load_config("rift_pluto")
-    pol = policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**load_config("rift_pluto"), **SMALL})
-    assert pol.canonical is jpol.canonical is False and pol.map_tokens() is None
-    cfg = apply_overrides(load_config("rift_pluto"), ["canonical_tokens=true"])
-    pol = policies.CBV_POLICY_LIST["rift_pluto"](CPU_MAP, {**cfg, **SMALL})
-    assert pol.trainable and pol.canonical is True
-
-    assert RunnerConfig().canonical is JaxRunnerConfig().canonical is False
-    jfields = {f.name: f for f in dataclasses.fields(JaxRunnerConfig)}
-    own = set()
-    for f in dataclasses.fields(RunnerConfig):
-        if f.name not in jfields:
-            own.add(f.name)
-        elif f.name != "train":
-            assert f.default == jfields[f.name].default, f.name
-    assert own == {"ego", "num_walkers", "num_statics"}
-    cfg = RunnerConfig()
-    assert (cfg.ego, cfg.num_walkers, cfg.num_statics) == ("rule", 0, 0)
-    runner = Runner(CPU_MAP, RunnerConfig(encoder_depth=1, decoder_depth=1), device="cpu")
-    assert runner._map_tokens() is None and runner.env.num_walkers == 0
-
-    args = run.parse_args([])
-    assert (args.mode, args.ego_cfg, args.cbv_cfg) == ("eval", "pdm_lite", "rift_pluto")
-    assert (args.num_walkers, args.num_statics, args.overrides) == (-1, -1, [])
+# the keys' losses: three here, three in test_torch_policies_losses.py, two
+# in test_torch_policies_zoo.py (files of at most three tests, which the
+# tier-1 run's loadfile scheduler hands out after its long pole)
+@pytest.mark.parametrize("key", FINE_TUNED[:3])
+def test_loss_fn_matches_jax(key):
+    loss_fn_matches_jax(key)

@@ -204,3 +204,33 @@ def write_route_file(path, ids=(1, 2, 3, 4)):
     with open(path, "w") as f:
         f.write("<routes>\n" + "\n".join(body) + "\n</routes>\n")
     return str(path)
+
+
+def eval_results_files(runs, S=2, A=6, ticks=30):
+    """For each (path, seed) of `runs`, a `simulation_results.json` of one
+    eval episode of the port's env on the CPU (one straight town, the rule
+    ego, S scenarios of A agents, from `seed`; CBVs from tick 26), written
+    by the port's StatisticsManager. Returns the paths."""
+    from rift_tpu_torch.map import make_straight_town
+    from rift_tpu_torch.scenario import TrafficEnv
+    from rift_tpu_torch.scenario.statistics import StatisticsManager
+
+    tm = make_straight_town(length=300.0, num_lanes=2, device="cpu")
+    for path, seed in runs:
+        env = TrafficEnv(tm, num_scenarios=S, num_agents=A, seed=seed, device="cpu")
+        state, crit, spec = env.reset()
+        for _ in range(ticks):
+            state, crit = env.step(state, crit)
+        StatisticsManager(str(path)).register_episode(crit, state, spec)
+    return [str(path) for path, _ in runs]
+
+
+def load_tool(path, name):
+    """A script module loaded from its file under `name` (the JAX package's
+    tools/ are scripts, not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
